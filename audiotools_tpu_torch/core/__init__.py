@@ -1,0 +1,3 @@
+from . import util
+from .loudness import Meter
+from .signal import AudioSignal
