@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, cached in ``_build/``
 under a hash of the source and the flags, and loaded with ``ctypes``.
 A failed build raises with nvcc's output: nothing falls back.
+``build_all`` runs one nvcc per source, all at once.
 """
 import ctypes
 import hashlib
@@ -13,6 +14,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -23,13 +25,16 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source flags. The phase vocoder's phasor compounds rounding over
-# every step, so its products and sums round one by one, as in the plain
-# PyTorch version (no FMA contraction); no source uses fast math.
-EXTRA_FLAGS = {"phase_vocoder": ["--fmad=false"]}
+SOURCES = ("fir_causal_batch", "phase_vocoder", "rotation_cumprod", "istft_synthesis")
+# Per-source flags. The phasor recurrences (kernels B and D) compound
+# rounding over every step, so their products and sums round one by one,
+# as in the plain PyTorch versions (no FMA contraction); no source uses
+# fast math.
+EXTRA_FLAGS = {"phase_vocoder": ["--fmad=false"], "rotation_cumprod": ["--fmad=false"]}
 
 BUILD_SECONDS = {}  # name -> seconds spent in nvcc by this process
 _libs = {}
+_locks = {}
 _lock = threading.Lock()
 
 
@@ -84,11 +89,21 @@ def _compile(name: str, out: Path):
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded kernel library for ``csrc/<name>.cu``, built if needed.
+    Different sources build concurrently; one source builds once."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _libs:
             out = library_path(name)
             if not out.exists():
                 _compile(name, out)
             _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build and load every source in ``names`` with one nvcc each, all
+    started together; raises the first failure."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(library, names)))

@@ -1,12 +1,15 @@
-"""Framed Fourier transforms on tensors: matmul STFT / iSTFT and mel.
+"""Framed Fourier transforms on tensors: STFT / iSTFT and mel.
 
-Counterpart of ``audiotools_tpu/ops/fft.py`` for the augmentation path.
-The analysis and synthesis DFTs are matmuls against window-fused real-DFT
-matrices designed on the host in float64 (the same numpy designs as the
-JAX package). ``stft`` runs in full fp32; ``istft`` in fp32
-(``"matmul"``) or with bf16 operands and fp32 accumulation
-(``"matmul_bf16"``: the spectrum and the matrices are rounded to bf16 and
-the product is summed in fp32, as a bf16 matrix unit computes it).
+Counterpart of ``audiotools_tpu/ops/fft.py``. ``method="fft"`` (the
+default, as in the JAX package) runs ``torch.fft`` on the windowed frames
+in fp32. ``"matmul"`` evaluates the DFTs as matmuls against window-fused
+real-DFT matrices designed on the host in float64 (the same numpy designs
+as the JAX package), in full fp32. The synthesis also takes
+``"matmul_bf16"``: the spectrum and the matrices are rounded to bf16 and
+the product is summed in fp32, as a bf16 matrix unit computes it; and
+``"matmul_bf16_fused"``, the same numerics through kernel E
+(``hopper_kernels.istft_synthesis_fused``), which never builds the frame
+tensor.
 """
 import functools
 import math
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import hopper_kernels
 from ._fp32 import strict_fp32
 
 __all__ = [
@@ -98,25 +102,38 @@ def _dft_matrices(window_type: str, n_fft: int):
 @functools.lru_cache(maxsize=None)
 def _idft_matrices(window_type: str, n_fft: int):
     """Window-fused inverse real-DFT matrices ``(n_freq, n_fft)``:
-    ``Re(S) @ Ci + Im(S) @ Si == irfft(S) * w``."""
-    w = get_window(window_type, n_fft).astype(np.float64)
+    ``Re(S) @ Ci + Im(S) @ Si == irfft(S) * w``.
+
+    Assembled in f32 as the JAX package assembles them for its matmul
+    iSTFTs (``_idft_matrices_device``): the float64 columns ``n =
+    0..n_fft/2`` cast to f32, mirrored for the other half (``sin`` with a
+    sign flip), times the f32 window. They differ from a float64 design cast
+    once by an f32 ulp here and there; the same f32 values round to the same
+    bf16 values, which the bf16 synthesis needs to agree with the JAX
+    package's.
+    """
     k = np.arange(n_fft // 2 + 1)[:, None]
-    n = np.arange(n_fft)[None, :]
+    n = np.arange(n_fft // 2 + 1)[None, :]
     ang = 2.0 * np.pi * k * n / n_fft
     scale = np.full((n_fft // 2 + 1, 1), 2.0)
     scale[0] = 1.0
     if n_fft % 2 == 0:
         scale[-1] = 1.0
+    ci = (scale * np.cos(ang) / n_fft).astype(np.float32)
+    si = (-scale * np.sin(ang) / n_fft).astype(np.float32)
+    w = get_window(window_type, n_fft)[None, :]
+    mirror = slice(n_fft // 2 - 1, 0, -1)  # columns n_fft/2 - 1 .. 1
     return (
-        (scale * np.cos(ang) * w[None, :] / n_fft).astype(np.float32),
-        (-scale * np.sin(ang) * w[None, :] / n_fft).astype(np.float32),
+        np.concatenate([ci, ci[:, mirror]], axis=1) * w,
+        np.concatenate([si, -si[:, mirror]], axis=1) * w,
     )
 
 
 @functools.lru_cache(maxsize=32)
 def _on_device(design, args: tuple, device: torch.device):
-    """Device copies of a cached host design, made once per device."""
-    return tuple(torch.from_numpy(m).to(device) for m in design(*args))
+    """Device copies of a cached host design (numpy arrays or CPU tensors),
+    made once per device."""
+    return tuple(torch.as_tensor(m).to(device) for m in design(*args))
 
 
 def _pad(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
@@ -126,17 +143,17 @@ def _pad(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
 
 def stft(audio: torch.Tensor, window_length: int, hop_length: int,
          window_type: str = "hann", match_stride: bool = False,
-         padding_type: str = "reflect", method: str = "matmul") -> torch.Tensor:
+         padding_type: str = "reflect", method: str = "fft") -> torch.Tensor:
     """Short-time Fourier transform of ``(..., T)`` audio.
 
     Returns complex64 ``(..., n_freq, n_frames)`` (``torch.stft(center=True)``
     framing). The result is a transposed view of a time-major ``(...,
     n_frames, n_freq)`` tensor, the layout the phase vocoder reads.
+    ``method``: ``"fft"`` (``rfft`` of the windowed frames) or ``"matmul"``
+    (window-fused DFT matrices), both fp32.
     """
-    if method != "matmul":
-        raise NotImplementedError(
-            f"stft method {method!r} is not ported yet (ROADMAP.md, Queue 1: ops/fft.py)"
-        )
+    if method not in ("fft", "matmul"):
+        raise ValueError(f"Unknown stft method: {method!r}")
     length = audio.shape[-1]
     right_pad, pad = compute_stft_padding(length, window_length, hop_length, match_stride)
     batch_shape = audio.shape[:-1]
@@ -147,17 +164,32 @@ def stft(audio: torch.Tensor, window_length: int, hop_length: int,
     x = _pad(x, cpad, cpad, "reflect")
 
     frames = _frame(x, window_length, hop_length)  # (B, n_frames, n_fft)
-    C, S = _on_device(_dft_matrices, (window_type, window_length), x.device)
-    with strict_fp32():
-        spec = torch.complex(frames @ C, frames @ S)  # (B, n_frames, n_freq)
+    if method == "fft":
+        (window,) = _on_device(_window_design, (window_type, window_length), x.device)
+        spec = torch.fft.rfft(frames * window, dim=-1)  # (B, n_frames, n_freq)
+    else:
+        C, S = _on_device(_dft_matrices, (window_type, window_length), x.device)
+        with strict_fp32():
+            spec = torch.complex(frames @ C, frames @ S)  # (B, n_frames, n_freq)
     spec = spec.transpose(-1, -2)
     if match_stride:
         spec = spec[..., 2:-2]
     return spec.reshape(batch_shape + spec.shape[1:])
 
 
+def _window_design(window_type: str, window_length: int):
+    return (get_window(window_type, window_length),)
+
+
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _synthesis_design(window_type: str, n_fft: int, hop_length: int):
+    """Kernel E's bf16 weights for the window-fused iDFT matrices."""
+    Ci, Si = _idft_matrices(window_type, n_fft)
+    return (hopper_kernels.synthesis_weights(torch.from_numpy(Ci), torch.from_numpy(Si),
+                                             hop_length),)
 
 
 @functools.lru_cache(maxsize=32)
@@ -175,18 +207,19 @@ def _inverse_envelope(window_type: str, window_length: int, hop_length: int, nt:
 def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
           window_type: str = "hann", match_stride: bool = False,
           length: int = None, original_length: int = None,
-          method: str = "matmul") -> torch.Tensor:
+          method: str = "fft") -> torch.Tensor:
     """Inverse STFT of ``(..., n_freq, n_frames)`` complex data: windowed
     overlap-add with window-square normalization (``torch.istft``
     semantics), center padding trimmed, cut to ``length``.
 
-    ``method="matmul"`` is fp32; ``"matmul_bf16"`` rounds the spectrum and
-    the iDFT matrices to bf16 and accumulates in fp32.
+    ``method``: ``"fft"`` (``irfft`` then the window) and ``"matmul"`` are
+    fp32; ``"matmul_bf16"`` rounds the spectrum and the iDFT matrices to
+    bf16 and accumulates in fp32; ``"matmul_bf16_fused"`` computes the same
+    in one pass of kernel E when the hop divides the window into at most 8
+    parts, and is ``"matmul_bf16"`` otherwise (the JAX package's rule).
     """
-    if method not in ("matmul", "matmul_bf16"):
-        raise NotImplementedError(
-            f"istft method {method!r} is not ported yet (ROADMAP.md, Queue 1: ops/fft.py)"
-        )
+    if method not in ("fft", "matmul", "matmul_bf16", "matmul_bf16_fused"):
+        raise ValueError(f"Unknown istft method: {method!r}")
     if length is None and original_length is None:
         raise ValueError("Provide either `length` or `original_length`.")
     right_pad, pad = compute_stft_padding(
@@ -198,25 +231,41 @@ def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
 
     batch_shape = stft_data.shape[:-2]
     nf, nt = stft_data.shape[-2], stft_data.shape[-1]
-    spec = stft_data.reshape(-1, nf, nt)
-    if match_stride:
-        spec = F.pad(spec, (2, 2))
-        nt = nt + 4
+    S = stft_data.reshape(-1, nf, nt).transpose(-1, -2)  # (B, nt, n_freq)
+    edge = 2 if match_stride else 0  # match_stride's zero frames at each end
 
-    out_len = window_length + hop_length * (nt - 1)
-    Ci, Si = _on_device(_idft_matrices, (window_type, window_length), spec.device)
-    S = spec.transpose(-1, -2)  # (B, nt, n_freq)
-    re, im = S.real, S.imag
-    if method == "matmul_bf16":
-        re, im, Ci, Si = _bf16(re), _bf16(im), _bf16(Ci), _bf16(Si)
-    with strict_fp32():
-        frames = re @ Ci + im @ Si  # (B, nt, n_fft), window applied
-    y = _overlap_add(frames, hop_length, out_len)
+    out_len = window_length + hop_length * (nt + 2 * edge - 1)
     (inv_env,) = _on_device(
-        _inverse_envelope, (window_type, window_length, hop_length, nt), y.device
+        _inverse_envelope, (window_type, window_length, hop_length, nt + 2 * edge), S.device
     )
-    y = y * inv_env
+    trim = (window_length, length, match_stride, pad, right_pad, batch_shape)
+    if method == "matmul_bf16_fused":
+        if window_length % hop_length == 0 and window_length // hop_length <= 8:
+            (w,) = _on_device(_synthesis_design, (window_type, window_length, hop_length),
+                              S.device)
+            y = hopper_kernels.istft_synthesis_fused(S, w, hop_length, inv_env, edge)
+            return _istft_trim(y, *trim)
+        method = "matmul_bf16"
+    if edge:
+        S = F.pad(S, (0, 0, edge, edge))
 
+    if method == "fft":
+        (window,) = _on_device(_window_design, (window_type, window_length), S.device)
+        frames = torch.fft.irfft(S, n=window_length, dim=-1) * window
+    else:
+        Ci, Si = _on_device(_idft_matrices, (window_type, window_length), S.device)
+        re, im = S.real, S.imag
+        if method == "matmul_bf16":
+            re, im, Ci, Si = _bf16(re), _bf16(im), _bf16(Ci), _bf16(Si)
+        with strict_fp32():
+            frames = re @ Ci + im @ Si  # (B, nt, n_fft), window applied
+    y = _overlap_add(frames, hop_length, out_len) * inv_env
+    return _istft_trim(y, *trim)
+
+
+def _istft_trim(y, window_length, length, match_stride, pad, right_pad, batch_shape):
+    """Shared iSTFT tail: drop the center padding, cut to ``length``, undo
+    the match-stride padding, restore the batch shape."""
     y = y[:, window_length // 2 :]
     if y.shape[1] < length:
         y = F.pad(y, (0, length - y.shape[1]))
@@ -284,9 +333,9 @@ def mel_spectrogram(audio: torch.Tensor, sample_rate: int, n_mels: int = 80,
                     window_length: int = None, hop_length: int = None,
                     window_type: str = "hann", match_stride: bool = False,
                     padding_type: str = "reflect",
-                    method: str = "matmul") -> torch.Tensor:
-    """Mel spectrogram ``(..., n_mels, n_frames)``: ``|STFT|`` projected on
-    the mel basis in fp32."""
+                    method: str = "fft") -> torch.Tensor:
+    """Mel spectrogram ``(..., n_mels, n_frames)``: ``|STFT|`` (``method``
+    as :func:`stft` takes it) projected on the mel basis in fp32."""
     if window_length is None:
         window_length = default_win_length(sample_rate)
     if hop_length is None:

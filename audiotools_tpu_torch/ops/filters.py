@@ -1,5 +1,5 @@
-"""FIR/IIR filtering on tensors: the mel-band graphic equalizer and the
-exact blocked IIR cascade.
+"""FIR/IIR filtering on tensors: the mel-band graphic equalizer, causal
+FFT convolution, truncated biquad FIRs and the exact blocked IIR cascade.
 
 Counterpart of ``audiotools_tpu/ops/filters.py`` for the augmentation
 path. The equalizer collapses its band-split into one per-item FIR and
@@ -17,7 +17,13 @@ import torch.nn.functional as F
 from . import hopper_kernels
 from ._fp32 import strict_fp32
 
-__all__ = ["mel_band_cutoffs", "equalizer", "iir_cascade_blocked"]
+__all__ = [
+    "mel_band_cutoffs",
+    "equalizer",
+    "causal_fft_conv1d",
+    "fir_from_biquad",
+    "iir_cascade_blocked",
+]
 
 
 def _next_pow2(n: int) -> int:
@@ -96,7 +102,7 @@ def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8) -> torc
     x = _edge_pad(audio, half)
     L = 2 * half + 1
     T = audio.shape[-1]
-    if L <= hopper_kernels.MAX_TAPS:
+    if L <= hopper_kernels.MAX_TAPS_BATCH:
         # full-convolution index t + L - 1 is the causal conv of the padded
         # signal with the reversed kernel at time t + L - 1
         B_, C_, Tp = x.shape
@@ -110,6 +116,48 @@ def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8) -> torc
     else:
         y = _fft_conv_valid(x, combined)
     return weights[:, -1, None, None] * audio + y[..., :T]
+
+
+def causal_fft_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                      block_size: int = None) -> torch.Tensor:
+    """Causal convolution ``y[n] = sum_k h[k] x[n - k]`` of ``(..., T)``
+    signals with one ``(L,)`` kernel, truncated to ``T``, by fp32 FFTs.
+    ``block_size`` (above ``2 L``) switches to overlap-save in blocks of
+    that power-of-two size."""
+    T = x.shape[-1]
+    L = kernel.shape[-1]
+    if block_size is not None and block_size > 2 * L:
+        return _causal_overlap_save(x, kernel, block_size)
+    n = _next_pow2(T + L)
+    y = torch.fft.irfft(torch.fft.rfft(x, n=n) * torch.fft.rfft(kernel, n=n), n=n)
+    return y[..., :T]
+
+
+def _causal_overlap_save(x: torch.Tensor, kernel: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Overlap-save causal convolution with ``nfft``-point blocks."""
+    T = x.shape[-1]
+    L = kernel.shape[-1]
+    hop = nfft - (L - 1)
+    nblk = -(-T // hop)
+    xf = x.reshape(-1, T)
+    # block b reads x[b hop - (L - 1) : b hop + hop]: front-pad with the
+    # causal history, tail-pad to the block grid
+    total = (nblk - 1) * hop + nfft
+    xp = F.pad(xf, (L - 1, max(0, total - T - (L - 1))))
+    blocks = xp.unfold(-1, nfft, hop)  # (B, nblk, nfft)
+    Y = torch.fft.rfft(blocks, n=nfft) * torch.fft.rfft(kernel, n=nfft)
+    y = torch.fft.irfft(Y, n=nfft)[..., L - 1 :]  # each block's hop valid samples
+    return y.reshape(xf.shape[0], -1)[:, :T].reshape(x.shape)
+
+
+def fir_from_biquad(b, a, n_taps: int) -> np.ndarray:
+    """Truncated impulse response ``(n_taps,)`` float32 of a biquad
+    (host-side design)."""
+    from scipy.signal import lfilter
+
+    impulse = np.zeros(n_taps)
+    impulse[0] = 1.0
+    return lfilter(b, a, impulse).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)

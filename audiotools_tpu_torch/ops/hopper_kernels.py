@@ -1,5 +1,8 @@
-"""Hand-written Hopper kernels of the augmentation path, with their plain
-PyTorch versions (counterpart of ``audiotools_tpu/ops/pallas_kernels.py``).
+"""Hand-written Hopper kernels, with their plain PyTorch versions
+(counterpart of ``audiotools_tpu/ops/pallas_kernels.py``): A, the per-item
+causal FIR; B, the fused phase vocoder; C, the causal FIR with one shared
+kernel; D, the exclusive complex cumulative product; E, the fused bf16
+iSTFT synthesis.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its CUDA kernel (``csrc/*.cu``, built at first use by ``_build``) for a
@@ -19,24 +22,42 @@ from ._fp32 import strict_fp32
 
 __all__ = [
     "MAX_TAPS",
+    "MAX_TAPS_BATCH",
+    "MAX_SYNTHESIS_OVERLAP",
     "LAUNCHES",
     "reset_launch_counts",
     "fir_causal_batch",
     "fir_causal_batch_plain",
     "phase_vocoder_fused",
     "phase_vocoder_fused_plain",
+    "fir_causal",
+    "fir_causal_plain",
+    "rotation_cumprod",
+    "rotation_cumprod_plain",
+    "synthesis_weights",
+    "istft_synthesis_fused",
+    "istft_synthesis_fused_plain",
 ]
 
-MAX_TAPS = 2048  # kernel A's shared-memory envelope (the equalizer's limit)
+MAX_TAPS = 8192  # kernel C's limit (the shared-kernel FIR; the meter uses 1023 or 4095)
+MAX_TAPS_BATCH = 2048  # kernel A's limit (the equalizer's per-item FIR)
+MAX_SYNTHESIS_OVERLAP = 8  # kernel E: at most n_fft / hop overlapping frames
 
-LAUNCHES = {"fir_causal_batch": 0, "phase_vocoder_fused": 0}
+LAUNCHES = {name: 0 for name in (
+    "fir_causal_batch", "phase_vocoder_fused", "fir_causal", "rotation_cumprod",
+    "istft_synthesis_fused",
+)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # (csrc file, argtypes)
     "fir_causal_batch": ("fir_causal_batch", [_P, _P, _P, _I, _I, _I, _P]),
+    "fir_causal": ("fir_causal_batch", [_P, _P, _P, _I, _I, _I, _P]),
     "phase_vocoder_fused": ("phase_vocoder", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rotation_cumprod": ("rotation_cumprod", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "istft_synthesis_fused": ("istft_synthesis",
+                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -103,15 +124,15 @@ def fir_causal_batch_plain(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def fir_causal_batch(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Causal FIR of ``(rows, T)`` float32 signals with per-row kernels
-    ``(rows, L)``, ``L <= MAX_TAPS``, truncated to ``T`` samples
+    ``(rows, L)``, ``L <= MAX_TAPS_BATCH``, truncated to ``T`` samples
     (``csrc/fir_causal_batch.cu``)."""
     if x.device.type == "cpu":
         return fir_causal_batch_plain(x, h)
     _check_fir(x, h)
     rows, T = x.shape
     L = h.shape[-1]
-    if L > MAX_TAPS:
-        raise ValueError(f"fir_causal_batch takes at most {MAX_TAPS} taps, got {L}")
+    if L > MAX_TAPS_BATCH:
+        raise ValueError(f"fir_causal_batch takes at most {MAX_TAPS_BATCH} taps, got {L}")
     if rows > 65535:
         raise ValueError(f"fir_causal_batch takes at most 65535 rows, got {rows}")
     y = torch.empty_like(x)
@@ -233,3 +254,193 @@ def phase_vocoder_fused(stft_data, i0, i1, frac, with_phasor: bool = False):
         return t.transpose(1, 2).reshape(*lead, F_bins, n_steps)
 
     return (back(out), back(track)) if with_phasor else back(out)
+
+
+# ---------------------------------------------------------------------------
+# C: causal FIR with one shared kernel (replaces pallas_kernels.fir_conv_causal)
+# ---------------------------------------------------------------------------
+
+
+def _check_fir_shared(x, h):
+    if h.ndim != 1 or x.ndim < 1:
+        raise ValueError(f"expected x (..., T) and h (L,), got {tuple(x.shape)}, {tuple(h.shape)}")
+    if x.dtype != torch.float32 or h.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}, {h.dtype}")
+
+
+def fir_causal_plain(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``y[..., n] = sum_k h[k] x[..., n - k]`` for ``n < T``: a ``conv1d``
+    of the left-padded rows against the flipped shared kernel."""
+    _check_fir_shared(x, h)
+    T = x.shape[-1]
+    L = h.shape[0]
+    rows = x.reshape(-1, 1, T)
+    with strict_fp32():
+        y = F.conv1d(F.pad(rows, (L - 1, 0)), h.flip(0)[None, None])
+    return y.reshape(x.shape)
+
+
+def fir_causal(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Causal FIR of ``(..., T)`` float32 signals with one kernel ``(L,)``,
+    ``L <= MAX_TAPS``, truncated to ``T`` samples (``csrc/fir_causal_batch.cu``,
+    kernel A's code with the taps shared by every row). Rows that are not
+    contiguous (a transposed multichannel meter input) are copied first."""
+    if x.device.type == "cpu":
+        return fir_causal_plain(x, h)
+    _check_fir_shared(x, h)
+    x = x.contiguous()
+    T = x.shape[-1]
+    L = h.shape[0]
+    rows = x.numel() // T
+    if L > MAX_TAPS:
+        raise ValueError(f"fir_causal takes at most {MAX_TAPS} taps, got {L}")
+    if rows > 65535:
+        raise ValueError(f"fir_causal takes at most 65535 rows, got {rows}")
+    y = torch.empty_like(x)
+    _launch("fir_causal", (x, h, y), x.data_ptr(), h.data_ptr(), y.data_ptr(), rows, T, L)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# D: exclusive complex cumulative product (replaces pallas_kernels.rotation_cumprod)
+# ---------------------------------------------------------------------------
+
+
+def _check_rot(ur, ui, cr, ci):
+    if ur.shape != ui.shape or cr.shape != ci.shape or ur.shape[:-1] != cr.shape:
+        raise ValueError(
+            f"expected u planes (..., n) and seeds (...,), got {tuple(ur.shape)}, "
+            f"{tuple(ui.shape)}, {tuple(cr.shape)}, {tuple(ci.shape)}"
+        )
+    if any(t.dtype != torch.float32 for t in (ur, ui, cr, ci)):
+        raise TypeError("expected float32 planes")
+
+
+def rotation_cumprod_plain(ur, ui, cr, ci):
+    """``P[..., 0] = c``, ``P[..., s + 1] = P[..., s] u[..., s]`` as a loop
+    over steps, in the kernel's operation order."""
+    _check_rot(ur, ui, cr, ci)
+    pr, pi = torch.empty_like(ur), torch.empty_like(ui)
+    ar, ai = cr, ci
+    for s in range(ur.shape[-1]):
+        pr[..., s] = ar
+        pi[..., s] = ai
+        u_r, u_i = ur[..., s], ui[..., s]
+        ar, ai = ar * u_r - ai * u_i, ar * u_i + ai * u_r
+    return pr, pi
+
+
+def rotation_cumprod(ur, ui, cr, ci):
+    """Exclusive cumulative complex product over the last axis of the
+    real-pair planes ``(ur, ui)`` ``(..., n)``, seeded with ``(cr, ci)``
+    ``(...,)``: ``P[0] = c``, ``P[s + 1] = P[s] u[s]``. Returns ``(Pr, Pi)``
+    shaped like ``ur`` (``csrc/rotation_cumprod.cu``). It is kernel B's
+    rotation scan without the magnitudes; no path of the library calls it.
+    """
+    if ur.device.type == "cpu":
+        return rotation_cumprod_plain(ur, ui, cr, ci)
+    _check_rot(ur, ui, cr, ci)
+    n = ur.shape[-1]
+    rows = ur.numel() // n if n else 0
+    if n < 1 or rows < 1:
+        raise ValueError(f"rotation_cumprod needs nonempty planes, got {tuple(ur.shape)}")
+    pr, pi = torch.empty_like(ur), torch.empty_like(ui)
+    _launch("rotation_cumprod", (ur, ui, cr, ci, pr, pi), ur.data_ptr(), ui.data_ptr(),
+            cr.data_ptr(), ci.data_ptr(), pr.data_ptr(), pi.data_ptr(), rows, n)
+    return pr, pi
+
+
+# ---------------------------------------------------------------------------
+# E: fused bf16 iSTFT synthesis (replaces pallas_kernels.istft_synthesis_fused)
+# ---------------------------------------------------------------------------
+
+_SYN_K_CHUNK = 32  # the kernel's contraction chunk (bf16 values)
+_SYN_COLS = 64  # the kernel's output columns per block
+
+
+def _syn_layout(n_freq: int, hop: int):
+    """``(hop_p, k2)``: the weights' column blocks padded to the block width,
+    the contraction padded to the chunk."""
+    return -(-hop // _SYN_COLS) * _SYN_COLS, -(-2 * n_freq // _SYN_K_CHUNK) * _SYN_K_CHUNK
+
+
+def synthesis_weights(Ci: torch.Tensor, Si: torch.Tensor, hop: int) -> torch.Tensor:
+    """Kernel E's weights from the window-fused iDFT matrices ``(n_freq,
+    n_fft)``: rows ``2k`` and ``2k + 1`` are ``Ci[k]`` and ``Si[k]`` (the
+    order of a complex64 row's re and im), each cut into the ``r = n_fft /
+    hop`` hop-wide column blocks padded to a multiple of the block width,
+    the rows padded with zeros to the contraction chunk; bf16, rounded to
+    nearest even. ``(k2, r * hop_p)``."""
+    n_freq, n_fft = Ci.shape
+    if n_fft % hop or n_fft // hop > MAX_SYNTHESIS_OVERLAP:
+        raise ValueError(f"fused synthesis needs hop | n_fft and n_fft / hop <= "
+                         f"{MAX_SYNTHESIS_OVERLAP}, got n_fft {n_fft}, hop {hop}")
+    r = n_fft // hop
+    hop_p, k2 = _syn_layout(n_freq, hop)
+    w = torch.stack([Ci, Si], dim=1).reshape(2 * n_freq, r, hop)
+    w = F.pad(w, (0, hop_p - hop)).reshape(2 * n_freq, r * hop_p)
+    return F.pad(w, (0, 0, 0, k2 - 2 * n_freq)).to(torch.bfloat16).contiguous()
+
+
+def _check_syn(spec, w, hop, inv_env, edge):
+    if spec.dtype != torch.complex64 or spec.ndim != 3:
+        raise TypeError(f"expected complex64 spectra (B, nt, n_freq), got {spec.dtype} "
+                        f"{tuple(spec.shape)}")
+    B, nt, n_freq = spec.shape
+    hop_p, k2 = _syn_layout(n_freq, hop)
+    r = w.shape[-1] // hop_p
+    if (w.dtype != torch.bfloat16 or w.shape != (k2, r * hop_p)
+            or (r * hop) // 2 + 1 != n_freq):
+        raise ValueError(f"expected synthesis weights ({k2}, r * {hop_p}) bf16 for {n_freq} "
+                         f"bins at hop {hop}, got {w.dtype} {tuple(w.shape)}")
+    if edge < 0:
+        raise ValueError(f"edge must be >= 0, got {edge}")
+    if inv_env.shape != (r * hop + hop * (nt + 2 * edge - 1),):
+        raise ValueError(f"envelope of {tuple(inv_env.shape)} for {nt} + 2 x {edge} frames "
+                         f"of {r * hop}, hop {hop}")
+    return r, hop_p
+
+
+def istft_synthesis_fused_plain(spec, w, hop: int, inv_env, edge: int = 0):
+    """The ``matmul_bf16`` synthesis: spectrum rounded to bf16, times the
+    bf16 iDFT matrices that ``w`` holds, summed in fp32, then overlap-add
+    and the envelope. ``spec`` ``(B, nt, n_freq)`` complex64, after
+    ``edge`` zero frames at each end -> ``(B, out_len)`` float32."""
+    from .fft import _bf16, _overlap_add
+
+    r, hop_p = _check_syn(spec, w, hop, inv_env, edge)
+    n_freq = spec.shape[-1]
+    m = w[: 2 * n_freq].float().reshape(n_freq, 2, r, hop_p)[..., :hop]
+    Ci, Si = m[:, 0].reshape(n_freq, r * hop), m[:, 1].reshape(n_freq, r * hop)
+    if edge:
+        spec = F.pad(spec, (0, 0, edge, edge))
+    with strict_fp32():
+        frames = _bf16(spec.real) @ Ci + _bf16(spec.imag) @ Si
+    return _overlap_add(frames, hop, inv_env.shape[0]) * inv_env
+
+
+def istft_synthesis_fused(spec, w, hop: int, inv_env, edge: int = 0):
+    """Fused iSTFT synthesis (``csrc/istft_synthesis.cu``): the window-fused
+    inverse DFT with bf16 operands and fp32 sums, the overlap-add and the
+    envelope in one pass, writing each output sample once; the ``(B, nt,
+    n_fft)`` frame tensor is never built.
+
+    ``spec``: ``(B, nt, n_freq)`` complex64, read in place when contiguous
+    (the phase vocoder's output is); ``w``: :func:`synthesis_weights` of the
+    window-fused iDFT matrices at ``hop``, which divides ``n_fft`` into at
+    most ``MAX_SYNTHESIS_OVERLAP`` parts; ``edge``: zero frames taken to
+    lead and trail the spectrum (read as zeros, not copied); ``inv_env``:
+    ``(out_len,)`` reciprocal envelope. Returns ``(B, out_len)`` float32.
+    """
+    if spec.device.type == "cpu":
+        return istft_synthesis_fused_plain(spec, w, hop, inv_env, edge)
+    r, hop_p = _check_syn(spec, w, hop, inv_env, edge)
+    B, nt, n_freq = spec.shape
+    if B > 65535:
+        raise ValueError(f"istft_synthesis_fused takes at most 65535 items, got {B}")
+    spec = spec.contiguous()
+    out = torch.empty((B, inv_env.shape[0]), dtype=torch.float32, device=spec.device)
+    _launch("istft_synthesis_fused", (spec, w, inv_env, out), spec.data_ptr(), w.data_ptr(),
+            inv_env.data_ptr(), out.data_ptr(), B, nt, edge, n_freq, w.shape[0], r, hop, hop_p,
+            nt + 2 * edge + r - 1)
+    return out

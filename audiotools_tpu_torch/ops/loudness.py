@@ -1,11 +1,15 @@
 """ITU-R BS.1770-4 K-weighted gated loudness on tensors.
 
-Counterpart of ``audiotools_tpu/ops/loudness.py`` for the exact meter:
-the weighting cascade runs through ``filters.iir_cascade_blocked``, the
-gating (eqs. 1-7: 400 ms blocks at 75% overlap, absolute gate at -70
-LKFS, relative gate 10 LU below the ungated mean) in one tensor function
-shared by the device meter and the host meter (``host_loudness``, which
-filters with scipy's ``lfilter``).
+Counterpart of ``audiotools_tpu/ops/loudness.py``. The exact meter runs
+the weighting cascade through ``filters.iir_cascade_blocked``; the FIR
+meter (``use_fir=True``, the original library's GPU meter, selected for
+every call by ``set_fast_meter(True)``) convolves with the stages'
+truncated impulse responses composed into one causal kernel, through
+kernel C (``hopper_kernels.fir_causal``) or an FFT convolution. The gating
+(eqs. 1-7: 400 ms blocks at 75% overlap, absolute gate at -70 LKFS,
+relative gate 10 LU below the ungated mean) is one tensor function shared
+by the device meter and the host meter (``host_loudness``, which filters
+with scipy's ``lfilter``).
 """
 import functools
 import math
@@ -14,12 +18,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .filters import iir_cascade_blocked
+from . import hopper_kernels
+from .filters import causal_fft_conv1d, fir_from_biquad, iir_cascade_blocked
 
 __all__ = [
     "GAIN_FACTOR",
     "MIN_LOUDNESS",
     "design_filters",
+    "k_weighting_coefficients",
+    "set_fast_meter",
     "apply_k_weighting",
     "integrated_loudness",
     "host_loudness",
@@ -30,6 +37,26 @@ GAIN_FACTOR = np.log(10) / 20
 """Amplitude <-> decibel conversion factor."""
 
 MIN_LOUDNESS = -70.0
+
+_METER_DEFAULTS = {"use_fir": False, "conv_method": "fft", "zeros": 512}
+
+CONV_METHODS = ("fft", "fft_os", "pallas")
+
+
+def set_fast_meter(enable: bool = True, zeros: int = 512):
+    """Set the process-wide default meter of every ``loudness()`` call that
+    passes no options (``mix``, ``normalize`` and ``VolumeNorm`` included).
+
+    ``enable=True`` selects the ``zeros``-tap truncated-FIR meter through
+    kernel C (``conv_method="pallas"``): the original library's GPU meter,
+    for agreement with it, not for speed. ``enable=False`` restores the
+    exact cascade.
+    """
+    global _METER_DEFAULTS
+    if enable:
+        _METER_DEFAULTS = {"use_fir": True, "conv_method": "pallas", "zeros": zeros}
+    else:
+        _METER_DEFAULTS = {"use_fir": False, "conv_method": "fft", "zeros": 512}
 
 # channel gains G: L, R, C, Ls, Rs
 CHANNEL_GAINS = np.array([1.0, 1.0, 1.0, 1.41, 1.41], dtype=np.float32)
@@ -107,11 +134,85 @@ def design_filters(rate: int, filter_class: str = "K-weighting"):
     return tuple(((b, a), g) for (b, a), g in stages)
 
 
-def apply_k_weighting(audio: torch.Tensor, rate: int,
-                      filter_class: str = "K-weighting") -> torch.Tensor:
-    """Exact weighting cascade over the last axis of ``(..., T)`` audio."""
-    stages = [(b, a, g) for (b, a), g in design_filters(rate, filter_class)]
-    return iir_cascade_blocked(audio, stages)
+def k_weighting_coefficients(rate: int):
+    """K-weighting ``(b, a)`` per stage."""
+    return [ba for ba, _ in design_filters(rate, "K-weighting")]
+
+
+@functools.lru_cache(maxsize=None)
+def _composed_fir(rate: int, filter_class: str, zeros: int) -> np.ndarray:
+    """The stages' ``zeros``-tap truncated impulse responses composed into
+    one causal kernel (host-side design): applying the truncated stage FIRs
+    one after another is the same causal filter."""
+    h = np.zeros(1, dtype=np.float64)
+    h[0] = 1.0
+    gain = 1.0
+    for (b, a), g in design_filters(rate, filter_class):
+        h = np.convolve(h, fir_from_biquad(b, a, zeros).astype(np.float64))
+        gain *= g
+    return (gain * h).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_fir(rate: int, filter_class: str, max_taps: int = 1 << 16) -> np.ndarray:
+    """The cascade's impulse response, cut where its tail falls below 1e-10
+    of its peak (host-side design): convolving with it is exact to fp32."""
+    from scipy.signal import lfilter
+
+    impulse = np.zeros(max_taps)
+    impulse[0] = 1.0
+    h = impulse
+    gain = 1.0
+    for (b, a), g in design_filters(rate, filter_class):
+        h = lfilter(b, a, h)
+        gain *= g
+    h = gain * h
+    tail = np.abs(h) / (np.abs(h).max() + 1e-30)
+    keep = np.nonzero(tail > 1e-10)[0]
+    n_keep = int(keep[-1]) + 1 if len(keep) else 1
+    return h[:n_keep].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _composed_fir_on(rate: int, filter_class: str, zeros: int, device: torch.device):
+    return torch.from_numpy(_composed_fir(rate, filter_class, zeros)).to(device)
+
+
+def apply_k_weighting(audio: torch.Tensor, rate: int, filter_class: str = "K-weighting",
+                      use_fir: bool = False, zeros: int = 512,
+                      conv_method: str = "fft") -> torch.Tensor:
+    """Weighting filters over the last axis of ``(..., T)`` audio.
+
+    ``use_fir=False`` runs the exact cascade (block state-space lifting).
+    ``use_fir=True`` convolves with the ``zeros``-tap composed FIR:
+    ``conv_method="pallas"`` through kernel C when the kernel has at most
+    ``hopper_kernels.MAX_TAPS`` taps (its plain version for CPU tensors),
+    otherwise, and for ``"fft"``, one FFT convolution; ``"fft_os"`` in
+    8192-point overlap-save blocks.
+    """
+    if conv_method not in CONV_METHODS:
+        if conv_method == "pallas_interpret":
+            raise ValueError(
+                "conv_method 'pallas_interpret' is the JAX package's TPU interpreter "
+                "mode; this package runs kernel C with conv_method='pallas'"
+            )
+        raise ValueError(f"conv_method must be one of {CONV_METHODS}, got {conv_method!r}")
+    if not use_fir:
+        stages = [(b, a, g) for (b, a), g in design_filters(rate, filter_class)]
+        return iir_cascade_blocked(audio, stages)
+    kernel = _composed_fir_on(rate, filter_class, zeros, audio.device)
+    if conv_method == "pallas" and kernel.shape[0] <= hopper_kernels.MAX_TAPS:
+        return hopper_kernels.fir_causal(audio, kernel)
+    return causal_fft_conv1d(audio, kernel, block_size=8192 if conv_method == "fft_os" else None)
+
+
+def _meter_options(use_fir, zeros, conv_method):
+    """Explicit meter options, the process-wide defaults for the rest."""
+    return (
+        _METER_DEFAULTS["use_fir"] if use_fir is None else use_fir,
+        _METER_DEFAULTS["zeros"] if zeros is None else zeros,
+        _METER_DEFAULTS["conv_method"] if conv_method is None else conv_method,
+    )
 
 
 @functools.lru_cache(maxsize=16)
@@ -158,13 +259,17 @@ def _gated_lufs(filtered: torch.Tensor, rate: int, block_size: float) -> torch.T
 
 
 def integrated_loudness(data: torch.Tensor, rate: int, filter_class: str = "K-weighting",
-                        block_size: float = 0.400) -> torch.Tensor:
-    """Integrated gated loudness (LUFS) of ``(nb, nt, nch)`` audio, ``(nb,)``."""
+                        block_size: float = 0.400, use_fir: bool = None, zeros: int = None,
+                        conv_method: str = None) -> torch.Tensor:
+    """Integrated gated loudness (LUFS) of ``(nb, nt, nch)`` audio, ``(nb,)``.
+    Meter options left at ``None`` take the defaults of
+    :func:`set_fast_meter`."""
     if data.ndim == 1:
         data = data[None, :, None]
     elif data.ndim == 2:
         data = data[None]
-    filtered = apply_k_weighting(data.float().transpose(-1, -2), rate, filter_class)
+    filtered = apply_k_weighting(data.float().transpose(-1, -2), rate, filter_class,
+                                 *_meter_options(use_fir, zeros, conv_method))
     return _gated_lufs(filtered, rate, block_size)
 
 
@@ -191,12 +296,15 @@ def host_loudness(audio_data: np.ndarray, sample_rate: int,
 
 
 def loudness(audio_data: torch.Tensor, sample_rate: int,
-             filter_class: str = "K-weighting", block_size: float = 0.400) -> torch.Tensor:
+             filter_class: str = "K-weighting", block_size: float = 0.400,
+             use_fir: bool = None, zeros: int = None, conv_method: str = None) -> torch.Tensor:
     """Loudness of ``(nb, nch, nt)`` audio, padded to >= 0.5 s and clamped
-    at -70 LKFS. Returns ``(nb,)``."""
+    at -70 LKFS. Returns ``(nb,)``. Meter options as
+    :func:`integrated_loudness` takes them."""
     nt = audio_data.shape[-1]
     min_len = int(0.5 * sample_rate)
     if nt < min_len:
         audio_data = F.pad(audio_data, (0, min_len - nt))
-    filtered = apply_k_weighting(audio_data.float(), sample_rate, filter_class)
+    filtered = apply_k_weighting(audio_data.float(), sample_rate, filter_class,
+                                 *_meter_options(use_fir, zeros, conv_method))
     return torch.clamp(_gated_lufs(filtered, sample_rate, block_size), min=MIN_LOUDNESS)

@@ -1,13 +1,15 @@
 """Phase-vocoder time stretching and pitch shifting on tensors.
 
-Counterpart of ``audiotools_tpu/ops/stretch.py``: STFT -> phasor phase
-vocoder (kernel B, ``hopper_kernels.phase_vocoder_fused``) -> iSTFT, and a
-polyphase resample for the pitch shift. Only the ``"phasor_fused"``
-evaluation is ported, so it is the default here.
+Counterpart of ``audiotools_tpu/ops/stretch.py``: STFT -> phase vocoder
+-> iSTFT, and a polyphase resample for the pitch shift. The vocoder has the
+JAX package's three evaluations: ``"angle"`` (the default), ``"phasor"``
+and ``"phasor_fused"`` (kernel B, ``hopper_kernels.phase_vocoder_fused``).
 """
+import math
 from fractions import Fraction
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
 from . import fft as _fft
@@ -28,23 +30,116 @@ def _pv_indices(T: int, rate: float):
     return i0, i1, frac
 
 
+def _rot(a, b):
+    """Complex product of real pairs ``a * b``."""
+    (ar, ai), (br, bi) = a, b
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _associative_scan(combine, elems):
+    """Inclusive scan of a tuple of tensors over the last axis with an
+    associative ``combine``, in log depth: adjacent pairs are combined, the
+    half-length sequence is scanned, and the even positions are filled in
+    (the odd/even recursion of ``jax.lax.associative_scan``, so the
+    products are formed in the same tree order)."""
+    n = elems[0].shape[-1]
+    if n < 2:
+        return elems
+    odd = _associative_scan(combine, combine(
+        tuple(e[..., 0:n - 1:2] for e in elems), tuple(e[..., 1::2] for e in elems)))
+    if n % 2 == 0:
+        even = combine(tuple(o[..., :-1] for o in odd), tuple(e[..., 2::2] for e in elems))
+    else:
+        even = combine(odd, tuple(e[..., 2::2] for e in elems))
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        ev = torch.cat([e[..., :1], ev], dim=-1)
+        full = ev.new_empty(ev.shape[:-1] + (n,))
+        full[..., 0::2] = ev
+        full[..., 1::2] = od
+        out.append(full)
+    return tuple(out)
+
+
+def _phase_vocoder_phasor(stft_data, i0, i1, frac):
+    """Phasor evaluation: interpolated magnitudes times the exclusive
+    cumulative product of the unit cross-spectra, seeded with frame 0's
+    unit phasor (a zero frame contributes the identity)."""
+    frac = torch.from_numpy(frac).to(stft_data.device)
+    z0, z1 = stft_data[..., i0], stft_data[..., i1]
+    a0, a1 = z0.abs(), z1.abs()
+    mag = (1.0 - frac) * a0 + frac * a1
+    wr = z1.real * z0.real + z1.imag * z0.imag
+    wi = z1.imag * z0.real - z1.real * z0.imag
+    norm = a0 * a1
+    safe = torch.where(norm > 0.0, norm, 1.0)
+    ur = torch.where(norm > 0.0, wr / safe, 1.0)
+    ui = torch.where(norm > 0.0, wi / safe, 0.0)
+    f0 = z0[..., 0]
+    fa = f0.abs()
+    fsafe = torch.where(fa > 0.0, fa, 1.0)
+    cr = torch.where(fa > 0.0, f0.real / fsafe, 1.0)
+    ci = torch.where(fa > 0.0, f0.imag / fsafe, 0.0)
+    sr = torch.cat([cr[..., None], ur[..., :-1]], dim=-1)
+    si = torch.cat([ci[..., None], ui[..., :-1]], dim=-1)
+    pr, pi = _associative_scan(_rot, (sr, si))
+    return torch.complex(mag * pr, mag * pi)
+
+
+def _phase_vocoder_angle(stft_data, i0, i1, frac, hop_length, window_length):
+    """Real-angle evaluation: per-step phase deviations by ``atan2``,
+    integrated with one cumsum."""
+    F_bins = stft_data.shape[-2]
+    device = stft_data.device
+    mag, phase = stft_data.abs(), stft_data.angle()
+    mag_t = (torch.from_numpy(1.0 - frac).to(device) * mag[..., i0]
+             + torch.from_numpy(frac).to(device) * mag[..., i1])
+    # expected advance per hop and bin, reduced mod 2 pi in exact integer
+    # arithmetic: an f32 ramp reaches ~1.6e3 rad, whose representation
+    # error the cumsum would accumulate linearly (5e-3 at 431 steps)
+    phi_advance = torch.from_numpy((
+        ((hop_length * np.arange(F_bins, dtype=np.int64)) % window_length).astype(np.float32)
+        * (2.0 * np.pi / window_length)
+    )[:, None]).to(device)
+    two_pi = 2.0 * math.pi
+    dphase = phase[..., i1] - phase[..., i0] - phi_advance
+    dphase = dphase - two_pi * torch.round(dphase / two_pi)
+    # each step wrapped to its principal value keeps the f32 cumsum O(pi n)
+    step_advance = phi_advance + dphase
+    step_advance = step_advance - two_pi * torch.round(step_advance / two_pi)
+    acc = torch.cumsum(step_advance, dim=-1)
+    phase_out = phase[..., :1] + F.pad(acc[..., :-1], (1, 0))
+    return torch.complex(mag_t * torch.cos(phase_out), mag_t * torch.sin(phase_out))
+
+
 def phase_vocoder(stft_data, rate: float, hop_length: int, window_length: int,
-                  formulation: str = "phasor_fused"):
+                  formulation: str = "angle"):
     """Stretch ``(..., F, T)`` complex STFT frames by ``rate`` (``rate > 1``
-    gives fewer frames): interpolated magnitudes times a unit phasor
-    advanced by each step's normalized cross-spectrum."""
-    if formulation != "phasor_fused":
-        raise NotImplementedError(
-            f"phase vocoder formulation {formulation!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: ops/stretch.py); use 'phasor_fused'"
-        )
+    gives fewer frames): interpolated magnitudes with the phase propagated
+    step by step.
+
+    ``formulation``: ``"angle"`` integrates wrapped ``atan2`` phase
+    deviations with one cumsum; ``"phasor"`` forms the cumulative product
+    of unit cross-spectra ``z1 conj(z0) / |z1 z0|`` by a log-depth scan;
+    ``"phasor_fused"`` runs the phasor recurrence in kernel B. The
+    formulations agree except after a transient zero frame, where the
+    phasor forms carry an identity rotation and ``"angle"`` a phase of 0.
+    """
     i0, i1, frac = _pv_indices(stft_data.shape[-1], rate)
-    return hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac)
+    if formulation == "angle":
+        return _phase_vocoder_angle(stft_data, i0, i1, frac, hop_length, window_length)
+    if formulation == "phasor":
+        return _phase_vocoder_phasor(stft_data, i0, i1, frac)
+    if formulation == "phasor_fused":
+        return hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac)
+    raise ValueError(
+        f"formulation must be 'angle', 'phasor', or 'phasor_fused', got {formulation!r}"
+    )
 
 
 def time_stretch(audio, factor: float, window_length: int = 2048, hop_length: int = None,
                  method: str = "matmul", synthesis_method: str = None,
-                 pv_formulation: str = "phasor_fused"):
+                 pv_formulation: str = "angle"):
     """Stretch ``(..., T)`` audio by ``factor`` (> 1 is faster) to
     ``round(T / factor)`` samples. ``method`` selects the analysis STFT,
     ``synthesis_method`` (default: ``method``) the iSTFT."""
@@ -62,7 +157,7 @@ def time_stretch(audio, factor: float, window_length: int = 2048, hop_length: in
 
 def pitch_shift(audio, n_semitones: float, sample_rate: int, window_length: int = 2048,
                 hop_length: int = None, method: str = "matmul",
-                synthesis_method: str = None, pv_formulation: str = "phasor_fused"):
+                synthesis_method: str = None, pv_formulation: str = "angle"):
     """Shift pitch by ``n_semitones`` keeping the duration: a time stretch
     by ``2 ** (-n / 12)`` and a resample by the same ratio, with the stretch
     on whichever side of the resample has fewer samples."""

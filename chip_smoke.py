@@ -5,22 +5,36 @@
 Builds the port's CUDA kernels from ``audiotools_tpu_torch/csrc`` and
 runs, on card 0:
 
-1. the device, its name and power limit (``nvidia-smi``), the kernel build;
+1. the device, its name and power limit (``nvidia-smi``), the kernel build
+   (one nvcc per source, all at once);
 2. kernel A (per-item causal FIR) against its plain PyTorch version at the
    equalizers' shapes (64 rows of 5 s or 1 s at 44.1 kHz; 641 or 231 taps);
 3. kernel B (fused phase vocoder) against its plain version at the pitch
    shift's shape (64 x 1 x 1025 bins, 384 frames -> 432 steps);
-4. the main path: AudioDataset -> DataLoader -> Compose(RoomImpulseResponse,
+4. kernel C (causal FIR, one shared kernel) at the FIR meter's shapes
+   (64 or 128 rows of 5 s, 1023 or 4095 taps) and at its 8192-tap limit;
+   kernel D (exclusive complex cumprod) at 65,600 rows x 432 steps; kernel
+   E (fused bf16 iSTFT synthesis) at the pitch shift's synthesis (64 x 432
+   frames of 2048, hop 512) and at n_fft 512, hop 128, with its
+   peak-memory increment against ``istft(method="matmul_bf16")``, with and
+   without ``match_stride``; then kernel D's own path, its public entry
+   point ``rotation_cumprod`` (no library path calls it), with its launches
+   counted;
+5. two paths on one staged batch of 64 clips of 5 s at 44.1 kHz
+   (AudioDataset -> DataLoader -> Compose(RoomImpulseResponse,
    BackgroundNoise, Equalizer, VolumeNorm) -> pitch_shift(+2 st) -> mel-80
-   -> BS.1770 loudness on 64 clips of 5 s at 44.1 kHz, timed with CUDA
-   events, and checks that it launched both kernels;
-5. the same chain on the card and on the CPU (plain versions) for the
+   -> BS.1770 loudness), each timed per stage with CUDA events and checked
+   to have launched its kernels: the main path (exact meter, bf16
+   synthesis: A and B) and the reference-parity path (the FIR meter of
+   ``set_fast_meter(True)`` and the fused synthesis: A, B, C and E);
+6. the same chains on the card and on the CPU (plain versions) for the
    first 4 clips, against stated tolerances.
 
 Any failed check exits non-zero. The last lines are the kernel table, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. Without a
 CUDA device the script exits non-zero and prints no result.
 """
+import contextlib
 import csv
 import json
 import subprocess
@@ -38,7 +52,9 @@ DURATION = 5.0
 N_ITER = 5
 N_CHECK = 4
 
-# kernel vs plain version on the card, relative to the largest output
+# kernel vs plain version on the card, relative to the largest output. All
+# sum in fp32; E rounds its operands to bf16 as its plain version does and
+# sums the exact products in another order (measured 2e-6)
 KERNEL_RTOL = 1e-5
 # chain on the card vs on the CPU (first N_CHECK clips). With fp32
 # synthesis both sides sum in fp32 in different orders. With the path's
@@ -57,9 +73,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def check(cond, msg):
+FAILED = []  # failed expectations: the run goes on and exits non-zero at the end
+
+
+def expect(cond, msg):
     if not cond:
-        fail(msg)
+        print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+        FAILED.append(msg)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +163,7 @@ def compare_kernel(name, kernel, plain, n_kernel, n_plain):
     want = want if isinstance(want, tuple) else (want,)
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     rel_err = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
-    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite output")
+    expect(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite output")
     p1 = time_ms(plain, n_plain)
     k1 = time_ms(kernel, n_kernel)
     k2 = time_ms(kernel, n_kernel)
@@ -163,17 +183,18 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    expect(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
+    card = (smi.stdout.strip().splitlines() or ["nvidia-smi: no output"])[0]
     print(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"| CUDA {torch.version.cuda} | count {torch.cuda.device_count()}")
     print(f"[device] nvidia-smi: {card}")
-    for source in ("fir_causal_batch", "phase_vocoder"):
-        t0 = time.perf_counter()
-        _build.library(source)
+    t0 = time.perf_counter()
+    _build.build_all()  # one nvcc per source, all started together
+    print(f"[build] all sources: {time.perf_counter() - t0:.2f} s")
+    for source in _build.SOURCES:
         ptxas = [ln.strip() for ln in _build.build_log(source).splitlines() if "registers" in ln]
-        print(f"[build] {source}: {time.perf_counter() - t0:.2f} s (nvcc "
-              f"{_build.BUILD_SECONDS.get(source, 0.0):.2f} s) {' | '.join(ptxas)}")
+        print(f"[build] {source}: nvcc {_build.BUILD_SECONDS.get(source, 0.0):.2f} s "
+              f"{' | '.join(ptxas)}")
     return card
 
 
@@ -198,7 +219,7 @@ def phase_kernel_a(dev):
         print(f"[kernel A] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
               f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms")
-        check(rel_err < KERNEL_RTOL, f"kernel A disagrees with its plain version ({label})")
+        expect(rel_err < KERNEL_RTOL, f"kernel A disagrees with its plain version ({label})")
         results[label] = (abs_err, ms, plain_ms)
     return results
 
@@ -222,8 +243,152 @@ def phase_kernel_b(dev):
     print(f"[kernel B] {shape} -> {len(i0)} steps (with phasor): max_abs_err {abs_err:.3e} "
           f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
           f"(~{gbytes / ms:.1f} TB/s of frame traffic) | plain {plain_ms:.4f} ms")
-    check(rel_err < KERNEL_RTOL, "kernel B disagrees with its plain version")
+    expect(rel_err < KERNEL_RTOL, "kernel B disagrees with its plain version")
     return abs_err, ms, plain_ms
+
+
+def phase_kernel_c(dev):
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+
+    rng = np.random.RandomState(3)
+    n = int(SR * DURATION)
+    meter = {z: PL._composed_fir(SR, "K-weighting", z) for z in (512, 2048)}
+    results = {}
+    # (rows, T, taps): the final LUFS and VolumeNorm; BackgroundNoise's
+    # stacked signal + noise call; the zeros=2048 meter; the 8192-tap limit
+    for label, (rows, T, h) in {
+        "meter": (BATCH, n, meter[512]),
+        "meter_stacked": (2 * BATCH, n, meter[512]),
+        "meter_zeros2048": (BATCH, n, meter[2048]),
+        "max_taps": (8, SR, (rng.randn(HK.MAX_TAPS) * 0.01).astype(np.float32)),
+    }.items():
+        L = len(h)
+        x = torch.from_numpy(rng.randn(rows, T).astype(np.float32) * 0.1).to(dev)
+        ht = torch.from_numpy(h).to(dev)
+        abs_err, rel_err, ms, plain_ms = compare_kernel(
+            "fir_causal", lambda: HK.fir_causal(x, ht), lambda: HK.fir_causal_plain(x, ht), 5, 2,
+        )
+        gflop = 2.0 * rows * T * L / 1e9
+        print(f"[kernel C] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
+              f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
+              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms "
+              f"({gflop / plain_ms:.2f} TFLOP/s)")
+        expect(rel_err < KERNEL_RTOL, f"kernel C disagrees with its plain version ({label})")
+        results[label] = (abs_err, ms, plain_ms)
+    return results
+
+
+def phase_kernel_d(dev):
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    rng = np.random.RandomState(4)
+    rows, n = BATCH * 1025, 432  # the pitch shift's rows x steps
+    ang = rng.uniform(-np.pi, np.pi, (rows, n))
+    seed = rng.uniform(-np.pi, np.pi, rows)
+    ur, ui, cr, ci = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed)))
+    abs_err, rel_err, ms, plain_ms = compare_kernel(
+        "rotation_cumprod", lambda: HK.rotation_cumprod(ur, ui, cr, ci),
+        lambda: HK.rotation_cumprod_plain(ur, ui, cr, ci), 10, 2,
+    )
+    gbytes = 4.0 * rows * n * 4 / 1e9
+    print(f"[kernel D] ({rows}, {n}): max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
+          f"(tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms ({gbytes / ms:.2f} TB/s) "
+          f"| plain {plain_ms:.4f} ms")
+    expect(rel_err < KERNEL_RTOL, "kernel D disagrees with its plain version")
+    return (abs_err, ms, plain_ms), (ur, ui, cr, ci)
+
+
+def phase_rotation(planes):
+    """Kernel D's own path: no library path calls it, so it is driven
+    through its public entry point, ``rotation_cumprod``, on the pitch
+    shift's rows x steps of unit rotations. Launch counts are set to 0 just
+    before and read just after."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    HK.reset_launch_counts()
+    for _ in range(N_ITER + 1):
+        pr, pi = HK.rotation_cumprod(*planes)
+    torch.cuda.synchronize()
+    launches = dict(HK.LAUNCHES)
+    # products of unit rotations stay on the unit circle
+    drift = float((torch.sqrt(pr * pr + pi * pi) - 1.0).abs().max())
+    print(f"[entry rotation_cumprod] {tuple(pr.shape)}: |P| - 1 at most {drift:.3e} "
+          f"(tol 1e-4) | kernel launches ({N_ITER + 1} calls): {launches}")
+    expect(launches["rotation_cumprod"] > 0, f"rotation_cumprod: kernel D not launched: {launches}")
+    expect(drift < 1e-4, "rotation_cumprod left the unit circle")
+    return launches
+
+
+def peak_increment(fn):
+    """Bytes that ``fn`` adds to the device's peak allocation."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def phase_kernel_e(dev):
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    rng = np.random.RandomState(5)
+    out_len = int(SR * DURATION)
+    results = {}
+    # the chain's synthesis at +2 st (64 x 432 frames of 2048, hop 512), and
+    # the same audio at n_fft 512, hop 128
+    for label, (n_fft, hop, nt) in {
+        "chain": (2048, 512, 432),
+        "n_fft512": (512, 128, 1 + 4 * 432),
+    }.items():
+        n_freq = n_fft // 2 + 1
+        shape = (BATCH, nt, n_freq)
+        spec = torch.from_numpy(
+            ((rng.randn(*shape) + 1j * rng.randn(*shape)) * 0.05).astype(np.complex64)).to(dev)
+        (w,) = PF._on_device(PF._synthesis_design, ("hann", n_fft, hop), dev)
+        (env,) = PF._on_device(PF._inverse_envelope, ("hann", n_fft, hop, nt), dev)
+        abs_err, rel_err, ms, plain_ms = compare_kernel(
+            "istft_synthesis_fused", lambda: HK.istft_synthesis_fused(spec, w, hop, env),
+            lambda: HK.istft_synthesis_fused_plain(spec, w, hop, env), 10, 3,
+        )
+        gflop = 2.0 * BATCH * nt * 2 * n_freq * n_fft / 1e9
+        print(f"[kernel E] {label} {shape} x ({n_fft}, hop {hop}): max_abs_err {abs_err:.3e} "
+              f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
+              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms")
+        expect(rel_err < KERNEL_RTOL, f"kernel E disagrees with its plain version ({label})")
+        results[label] = (abs_err, ms, plain_ms)
+
+    # peak memory at the chain's shape (432 synthesis frames): E against the
+    # unfused bf16 iSTFT, on a spectrum laid out as kernel B writes it
+    # (time-major, read in place); and with match_stride, whose two zero
+    # frames at each end E reads as zeros instead of padding a copy
+    frames = BATCH * 432 * 2048 * 4
+    peaks = {}
+    for match_stride in (False, True):
+        nt = 432 - 4 * match_stride
+        shape = (BATCH, 1, nt, 1025)
+        stft_data = torch.from_numpy(
+            ((rng.randn(*shape) + 1j * rng.randn(*shape)) * 0.05).astype(np.complex64)
+        ).to(dev).transpose(-1, -2)
+        kw = dict(match_stride=True, original_length=nt * 512) if match_stride else dict(
+            length=out_len)
+        for m in ("matmul_bf16_fused", "matmul_bf16"):
+            PF.istft(stft_data, 2048, 512, method=m, **kw)  # warm-up: the cached designs
+            peaks[m, match_stride] = peak_increment(
+                lambda: PF.istft(stft_data, 2048, 512, method=m, **kw))
+        print(f"[kernel E] peak-memory increment at {shape}, match_stride {match_stride}: "
+              f"fused {peaks['matmul_bf16_fused', match_stride] / 1e6:.1f} MB, matmul_bf16 "
+              f"{peaks['matmul_bf16', match_stride] / 1e6:.1f} MB (frame tensor "
+              f"{frames / 1e6:.1f} MB)")
+        expect(peaks["matmul_bf16_fused", match_stride] < frames,
+               f"kernel E's peak-memory increment (match_stride {match_stride}) is not below "
+               f"the frame tensor it never builds")
+    return results, peaks
 
 
 def make_dataset(root, n_examples):
@@ -242,7 +407,8 @@ def make_dataset(root, n_examples):
 
 def run_chain(ds, batch, synthesis_method="matmul_bf16", marks=None):
     """The main path on a staged batch; ``marks`` collects a CUDA event
-    after each stage (chain, pitch shift, mel, loudness)."""
+    after each stage (chain, pitch shift, mel, loudness). The meter is the
+    process-wide default (``loudness.set_fast_meter``)."""
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import loudness as PL
     from audiotools_tpu_torch.ops import stretch as PS
@@ -265,47 +431,67 @@ def run_chain(ds, batch, synthesis_method="matmul_bf16", marks=None):
     return audio, mel, lufs
 
 
-def phase_chain(ds, dev):
-    from audiotools_tpu_torch.data import DataLoader
+@contextlib.contextmanager
+def meter(fast: bool):
+    """The process-wide meter for one path; the exact meter is restored
+    on the way out, whatever happens inside."""
+    from audiotools_tpu_torch.ops import loudness as PL
+
+    PL.set_fast_meter(fast)
+    try:
+        yield
+    finally:
+        PL.set_fast_meter(False)
+
+
+# (label, fast meter, synthesis method, kernels the path must launch)
+PATHS = [
+    ("main", False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
+    ("parity", True, "matmul_bf16_fused",
+     ("fir_causal_batch", "phase_vocoder_fused", "fir_causal", "istft_synthesis_fused")),
+]
+
+
+def phase_chain(ds, batch, label, fast_meter, synthesis_method, must_launch):
+    """One path on the staged batch: a warm-up run, then N_ITER timed runs.
+    Launch counts are set to 0 just before the path and read just after."""
     from audiotools_tpu_torch.ops import hopper_kernels as HK
 
-    HK.reset_launch_counts()
-    t0 = time.perf_counter()
-    batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8, device=dev)))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-
-    run_chain(ds, batch)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    stages = np.zeros(4)
-    t0 = time.perf_counter()
-    for _ in range(N_ITER):
-        marks = []
-        audio, mel, lufs = run_chain(ds, batch, marks=marks)
+    with meter(fast_meter):
+        HK.reset_launch_counts()
+        run_chain(ds, batch, synthesis_method)  # warm-up
         torch.cuda.synchronize()
-        stages += [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
-    wall_ms = (time.perf_counter() - t0) * 1000 / N_ITER
-    launches = dict(HK.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        stages = np.zeros(4)
+        t0 = time.perf_counter()
+        for _ in range(N_ITER):
+            marks = []
+            audio, mel, lufs = run_chain(ds, batch, synthesis_method, marks=marks)
+            torch.cuda.synchronize()
+            stages += [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        wall_ms = (time.perf_counter() - t0) * 1000 / N_ITER
+        launches = dict(HK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     stages /= N_ITER
     ms = float(stages.sum())
-    print(f"[chain] first batch through DataLoader (8 workers, staged to the card): {load_s:.2f} s")
-    print(f"[chain] {BATCH} x {DURATION:g} s @ {SR} Hz: {ms:.3f} ms/batch (CUDA events; "
-          f"host wall {wall_ms:.3f} ms) | {BATCH / ms * 1000:.1f} clips/s | "
+    tag = f"[chain {label}]"
+    print(f"{tag} meter {'FIR through kernel C' if fast_meter else 'exact'}, synthesis "
+          f"{synthesis_method}: {BATCH} x {DURATION:g} s @ {SR} Hz: {ms:.3f} ms/batch (CUDA "
+          f"events; host wall {wall_ms:.3f} ms) | {BATCH / ms * 1000:.1f} clips/s | "
           f"{BATCH * DURATION / ms * 1000:.0f}x real time | peak {peak / 2**30:.3f} GiB")
-    print("[chain] stages (ms): " + ", ".join(
+    print(f"{tag} stages (ms): " + ", ".join(
         f"{n} {v:.3f}" for n, v in zip(("transforms", "pitch_shift", "mel", "loudness"), stages)))
-    print(f"[chain] kernel launches in the main path ({N_ITER + 1} runs): {launches}")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    print(f"{tag} kernel launches ({N_ITER + 1} runs): {launches}")
+    expect(all(launches[k] > 0 for k in must_launch),
+           f"{label}: a kernel of the path was not launched: {launches}")
     n_frames = 1 + int(SR * DURATION) // 512
-    check(tuple(audio.shape) == (BATCH, 1, int(SR * DURATION)), f"audio shape {tuple(audio.shape)}")
-    check(tuple(mel.shape) == (BATCH, 1, 80, n_frames), f"mel shape {tuple(mel.shape)}")
-    check(tuple(lufs.shape) == (BATCH,), f"lufs shape {tuple(lufs.shape)}")
+    expect(tuple(audio.shape) == (BATCH, 1, int(SR * DURATION)), f"audio shape {tuple(audio.shape)}")
+    expect(tuple(mel.shape) == (BATCH, 1, 80, n_frames), f"mel shape {tuple(mel.shape)}")
+    expect(tuple(lufs.shape) == (BATCH,), f"lufs shape {tuple(lufs.shape)}")
     for name, t in (("audio", audio), ("mel", mel), ("lufs", lufs)):
-        check(bool(torch.isfinite(t).all()), f"non-finite {name}")
-    check(bool(((lufs > -40) & (lufs < -10)).all()), f"implausible loudness {lufs.tolist()}")
+        expect(bool(torch.isfinite(t).all()), f"non-finite {name}")
+    expect(bool(((lufs > -40) & (lufs < -10)).all()), f"implausible loudness {lufs.tolist()}")
     return launches
 
 
@@ -313,20 +499,26 @@ def phase_card_vs_cpu(ds, dev):
     from audiotools_tpu_torch.core import util
 
     items = util.collate([ds[i] for i in range(N_CHECK)])
-    for method, tol in CHAIN_TOL.items():
-        a_gpu, m_gpu, l_gpu = (t.cpu() for t in run_chain(
-            ds, util.prepare_batch(items, dev), synthesis_method=method))
-        a_cpu, m_cpu, l_cpu = run_chain(
-            ds, util.prepare_batch(items, "cpu"), synthesis_method=method)
+    for fast_meter, method, tol in (
+        (False, "matmul", CHAIN_TOL["matmul"]),
+        (False, "matmul_bf16", CHAIN_TOL["matmul_bf16"]),
+        (True, "matmul_bf16_fused", CHAIN_TOL["matmul_bf16"]),
+    ):
+        with meter(fast_meter):
+            a_gpu, m_gpu, l_gpu = (t.cpu() for t in run_chain(
+                ds, util.prepare_batch(items, dev), synthesis_method=method))
+            a_cpu, m_cpu, l_cpu = run_chain(
+                ds, util.prepare_batch(items, "cpu"), synthesis_method=method)
         err = {
             "audio_abs": float((a_gpu - a_cpu).abs().max()),
             "mel_rel": float((m_gpu - m_cpu).abs().max() / m_cpu.abs().max()),
             "lufs_db": float((l_gpu - l_cpu).abs().max()),
         }
-        print(f"[card vs cpu] {N_CHECK} clips, synthesis {method}: " + ", ".join(
-            f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in err.items()))
+        print(f"[card vs cpu] {N_CHECK} clips, meter {'FIR' if fast_meter else 'exact'}, "
+              f"synthesis {method}: " + ", ".join(
+                  f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in err.items()))
         for k, v in err.items():
-            check(v <= tol[k], f"card vs CPU {k} {v:.3e} > {tol[k]:g} ({method})")
+            expect(v <= tol[k], f"card vs CPU {k} {v:.3e} > {tol[k]:g} ({method})")
 
 
 def main():
@@ -337,25 +529,45 @@ def main():
     card = phase_device()
     a = phase_kernel_a(dev)
     b = phase_kernel_b(dev)
+    c = phase_kernel_c(dev)
+    d, planes = phase_kernel_d(dev)
+    e, _ = phase_kernel_e(dev)
+    launches = {"rotation": phase_rotation(planes)}
+    del planes
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         build_fixture_tree(root)
         ds = make_dataset(root, BATCH)
-        launches = phase_chain(ds, dev)
+        from audiotools_tpu_torch.data import DataLoader
+
+        t0 = time.perf_counter()
+        batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8, device=dev)))
+        torch.cuda.synchronize()
+        print(f"[chain] first batch through DataLoader (8 workers, staged to the card): "
+              f"{time.perf_counter() - t0:.2f} s")
+        launches.update({label: phase_chain(ds, batch, label, *rest) for label, *rest in PATHS})
         phase_card_vs_cpu(ds, dev)
+    if FAILED:
+        fail(f"{len(FAILED)} failed checks: {FAILED}")
+
+    def row(name, source, line, path, results, key=None):
+        """``results``: {shape label: (abs_err, ms, plain_ms)}, timed at
+        ``key``, or one such tuple."""
+        if key is None:
+            results, key = {key: results}, key
+        return {"name": name, "route": "cuda", "source": f"audiotools_tpu_torch/csrc/{source}",
+                "replaces": f"audiotools_tpu/ops/pallas_kernels.py:{line}",
+                "launches": launches[path][name],
+                "max_abs_err": max(v[0] for v in results.values()),
+                "ms": results[key][1], "plain_ms": results[key][2]}
 
     kernels = [
-        {"name": "fir_causal_batch", "route": "cuda",
-         "source": "audiotools_tpu_torch/csrc/fir_causal_batch.cu",
-         "replaces": "audiotools_tpu/ops/pallas_kernels.py:182",
-         "launches": launches["fir_causal_batch"],
-         "max_abs_err": max(v[0] for v in a.values()),
-         "ms": a["equalizer"][1], "plain_ms": a["equalizer"][2]},
-        {"name": "phase_vocoder_fused", "route": "cuda",
-         "source": "audiotools_tpu_torch/csrc/phase_vocoder.cu",
-         "replaces": "audiotools_tpu/ops/pallas_kernels.py:309",
-         "launches": launches["phase_vocoder_fused"],
-         "max_abs_err": b[0], "ms": b[1], "plain_ms": b[2]},
+        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main", a, "equalizer"),
+        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main", b),
+        row("fir_causal", "fir_causal_batch.cu", 100, "parity", c, "meter"),
+        # D has no caller in the library: its own path is its entry point
+        row("rotation_cumprod", "rotation_cumprod.cu", 417, "rotation", d),
+        row("istft_synthesis_fused", "istft_synthesis.cu", 527, "parity", e, "chain"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

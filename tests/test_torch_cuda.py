@@ -10,15 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from audiotools_tpu_torch.ops import fft as PF
 from audiotools_tpu_torch.ops import filters as PFL
 from audiotools_tpu_torch.ops import hopper_kernels as HK
+from audiotools_tpu_torch.ops import loudness as PL
 from audiotools_tpu_torch.ops import stretch as PS
 
 pytestmark = pytest.mark.cuda
 
 # Kernel vs plain version, relative to the largest output magnitude. Both
-# sum in fp32 (A: in another order; B: in the same order, no FMA
-# contraction), so they agree far inside this.
+# sum in fp32 (A, C, E: in another order, E on the same bf16-rounded
+# operands; B, D: in the same order, no FMA contraction), so they agree far
+# inside this.
 KERNEL_RTOL = 1e-5
 
 
@@ -110,3 +113,105 @@ def test_equalizer_and_pitch_shift_on_card_match_cpu(cuda):
     ps_cpu = PS.pitch_shift(x, 2.0, 44100)
     ps_gpu = PS.pitch_shift(x.to(cuda), 2.0, 44100)
     assert (ps_gpu.cpu() - ps_cpu).abs().max() < 1e-4
+
+
+# -- C: causal FIR with one shared kernel -----------------------------------
+
+
+@pytest.mark.parametrize("shape,L", [((3, 1000), 1), ((2, 3, 5000), 1023), ((4, 777), 4095),
+                                     ((2, 9000), 8192), ((130, 2048), 33)])
+def test_shared_fir_kernel_matches_plain(cuda, shape, L):
+    rng = np.random.RandomState(L + len(shape))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    h = torch.from_numpy((rng.randn(L) * 0.05).astype(np.float32)).to(cuda)
+    before = HK.LAUNCHES["fir_causal"]
+    got = HK.fir_causal(x, h)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["fir_causal"] == before + 1
+    assert got.shape == x.shape
+    assert _rel_err(got, HK.fir_causal_plain(x, h)) < KERNEL_RTOL
+
+
+def test_shared_fir_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 4000, device=cuda)
+    with pytest.raises(ValueError, match="taps"):
+        HK.fir_causal(x, torch.zeros(HK.MAX_TAPS + 1, device=cuda))
+    with pytest.raises(ValueError, match=r"\(L,\)"):
+        HK.fir_causal(x, torch.zeros(2, 9, device=cuda))
+
+
+def test_fir_meter_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy((rng.randn(3, 1, 44100) * 0.1).astype(np.float32))
+    before = HK.LAUNCHES["fir_causal"]
+    got = PL.loudness(x.to(cuda), 44100, use_fir=True, conv_method="pallas")
+    assert HK.LAUNCHES["fir_causal"] == before + 1
+    want = PL.loudness(x, 44100, use_fir=True, conv_method="pallas")
+    assert (got.cpu() - want).abs().max() < 1e-3
+
+
+# -- D: exclusive complex cumulative product --------------------------------
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 40), (200, 1), (1, 129, 33), (300, 432)])
+def test_rotation_kernel_matches_plain(cuda, shape):
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    ang = rng.uniform(-np.pi, np.pi, shape)
+    seed = rng.uniform(-np.pi, np.pi, shape[:-1])
+    ur, ui, cr, ci = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+                      for a in (np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed)))
+    before = HK.LAUNCHES["rotation_cumprod"]
+    got = HK.rotation_cumprod(ur, ui, cr, ci)
+    want = HK.rotation_cumprod_plain(ur, ui, cr, ci)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["rotation_cumprod"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == shape
+        assert _rel_err(g, w) < KERNEL_RTOL
+
+
+# -- E: fused bf16 iSTFT synthesis ------------------------------------------
+
+
+@pytest.mark.parametrize("B,nt,n_fft,hop", [(2, 37, 2048, 512), (3, 70, 512, 128),
+                                            (1, 5, 256, 32), (2, 130, 64, 64)])
+def test_synthesis_kernel_matches_plain(cuda, B, nt, n_fft, hop):
+    rng = np.random.RandomState(nt)
+    n_freq = n_fft // 2 + 1
+    spec = torch.from_numpy(((rng.randn(B, nt, n_freq) + 1j * rng.randn(B, nt, n_freq)) * 0.1)
+                            .astype(np.complex64)).to(cuda)
+    (w,) = PF._on_device(PF._synthesis_design, ("hann", n_fft, hop), cuda)
+    for edge in (0, 2):  # 2: match_stride's zero frames, read as zeros
+        (env,) = PF._on_device(PF._inverse_envelope, ("hann", n_fft, hop, nt + 2 * edge), cuda)
+        before = HK.LAUNCHES["istft_synthesis_fused"]
+        got = HK.istft_synthesis_fused(spec, w, hop, env, edge)
+        torch.cuda.synchronize()
+        assert HK.LAUNCHES["istft_synthesis_fused"] == before + 1
+        want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
+        assert got.shape == want.shape == (B, n_fft + hop * (nt + 2 * edge - 1))
+        assert _rel_err(got, want) < KERNEL_RTOL
+
+
+def test_fused_istft_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.randn(2, 1, 22050) * 0.3).astype(np.float32))
+    spec = PF.stft(x, 2048, 512, match_stride=True)
+    got = PF.istft(spec.to(cuda), 2048, 512, match_stride=True, original_length=22050,
+                   method="matmul_bf16_fused")
+    want = PF.istft(spec, 2048, 512, match_stride=True, original_length=22050,
+                    method="matmul_bf16_fused")
+    assert _rel_err(got, want) < KERNEL_RTOL
+
+
+def test_parity_pitch_shift_on_card_matches_cpu(cuda):
+    """The vocoder (B) writes the layout the synthesis (E) reads in place."""
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(2, 1, 22050) * 0.1).astype(np.float32))
+    kw = dict(synthesis_method="matmul_bf16_fused", pv_formulation="phasor_fused")
+    before = dict(HK.LAUNCHES)
+    got = PS.pitch_shift(x.to(cuda), 2.0, 44100, **kw)
+    for name in ("phase_vocoder_fused", "istft_synthesis_fused"):
+        assert HK.LAUNCHES[name] == before[name] + 1
+    # bf16 rounding may fall on the other side on the two devices (one
+    # bf16 ulp, 2**-8, of a value), as chip_smoke.py's CHAIN_TOL states
+    assert (got.cpu() - PS.pitch_shift(x, 2.0, 44100, **kw)).abs().max() < 4e-3

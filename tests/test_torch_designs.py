@@ -75,7 +75,9 @@ def test_rbj(kind):
 def test_windows_and_dft_matrices(window_type, n_fft):
     _equal(PF.get_window(window_type, n_fft), JF.get_window(window_type, n_fft))
     _equal(PF._dft_matrices(window_type, n_fft), JF._dft_matrices(window_type, n_fft))
-    _equal(PF._idft_matrices(window_type, n_fft), JF._idft_matrices(window_type, n_fft))
+    # the synthesis matrices as the JAX package's matmul iSTFTs assemble them
+    _equal(PF._idft_matrices(window_type, n_fft),
+           tuple(np.asarray(m) for m in JF._idft_matrices_device(window_type, n_fft)))
 
 
 @pytest.mark.parametrize("args", [(44100, 2048, 80), (16000, 512, 40, 50.0, 7000.0),
@@ -87,3 +89,23 @@ def test_mel_filters(args):
 @pytest.mark.parametrize("T,rate", [(384, 2 ** (-2 / 12)), (61, 1.31), (100, 0.77), (5, 1.0)])
 def test_pv_indices(T, rate):
     _equal(PS._pv_indices(T, rate), JS._pv_indices(T, rate))
+
+
+@pytest.mark.parametrize("n_taps", [1, 512, 2048])
+@pytest.mark.parametrize("rate", [44100, 16000])
+def test_fir_from_biquad(rate, n_taps):
+    for (b, a), _ in JL.design_filters(rate, "K-weighting"):
+        _equal(PFL.fir_from_biquad(b, a, n_taps), JFL.fir_from_biquad(b, a, n_taps))
+
+
+@pytest.mark.parametrize("zeros", [512, 2048, 64])
+@pytest.mark.parametrize("rate,filter_class", [(44100, "K-weighting"), (48000, "K-weighting"),
+                                               (16000, "Fenton/Lee 1"), (44100, "Dash et al.")])
+def test_composed_fir(rate, filter_class, zeros):
+    _equal(PL._composed_fir(rate, filter_class, zeros), JL._composed_fir(rate, filter_class, zeros))
+
+
+@pytest.mark.parametrize("rate,filter_class", [(44100, "K-weighting"), (48000, "Fenton/Lee 2"),
+                                               (16000, "Dash et al.")])
+def test_exact_fir(rate, filter_class):
+    _equal(PL._exact_fir(rate, filter_class), JL._exact_fir(rate, filter_class))

@@ -76,7 +76,7 @@ def test_phase_vocoder_matches_jax_fused_interpret(rate):
     z = _spectrum(0, (2, 129, 61))
     want = np.asarray(JS.phase_vocoder(jnp.asarray(z), rate, 64, 256,
                                        formulation="phasor_fused_interpret"))
-    got = PS.phase_vocoder(torch.from_numpy(z), rate, 64, 256).numpy()
+    got = PS.phase_vocoder(torch.from_numpy(z), rate, 64, 256, formulation="phasor_fused").numpy()
     assert got.shape == want.shape
     assert _rel(got, want) < 1e-5
 
@@ -105,8 +105,9 @@ def test_phase_vocoder_checks_its_tables():
         HK.phase_vocoder_fused(z, shifted, i1, frac)
     with pytest.raises(TypeError, match="complex64"):
         HK.phase_vocoder_fused(z.to(torch.complex128), i0, i1, frac)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PS.phase_vocoder(z, 0.8, 64, 256, formulation="angle")
+    # an unknown formulation raises, as in the JAX package
+    with pytest.raises(ValueError, match="formulation must be"):
+        PS.phase_vocoder(z, 0.8, 64, 256, formulation="phasor_fused_interpret")
 
 
 # -- dispatch: CPU -> plain version; any other device -> kernel or raise ----
@@ -116,7 +117,14 @@ def test_cpu_tensors_run_the_plain_versions_without_counting_launches():
     HK.reset_launch_counts()
     HK.fir_causal_batch(torch.zeros(2, 64), torch.zeros(2, 5))
     HK.phase_vocoder_fused(torch.zeros(1, 3, 8, dtype=torch.complex64), *PS._pv_indices(8, 1.1))
-    assert HK.LAUNCHES == {"fir_causal_batch": 0, "phase_vocoder_fused": 0}
+    HK.fir_causal(torch.zeros(2, 64), torch.zeros(5))
+    HK.rotation_cumprod(torch.ones(2, 4), torch.zeros(2, 4), torch.ones(2), torch.zeros(2))
+    env = torch.ones(64 + 16 * 2)
+    w = HK.synthesis_weights(torch.zeros(33, 64), torch.zeros(33, 64), 16)
+    HK.istft_synthesis_fused(torch.zeros(1, 3, 33, dtype=torch.complex64), w, 16, env)
+    assert HK.LAUNCHES == dict.fromkeys(HK.LAUNCHES, 0)
+    assert sorted(HK.LAUNCHES) == sorted(["fir_causal_batch", "phase_vocoder_fused", "fir_causal",
+                                          "rotation_cumprod", "istft_synthesis_fused"])
 
 
 def _no_plain(monkeypatch):

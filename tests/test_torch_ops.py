@@ -35,7 +35,8 @@ def test_stft_matches_jax(win, hop, match_stride):
     x = _noise((2, 1, 22050), 0, 0.5)
     want = np.asarray(JF.stft(jnp.asarray(x), win, hop, match_stride=match_stride,
                               method="matmul"))
-    got = PF.stft(torch.from_numpy(x), win, hop, match_stride=match_stride).numpy()
+    got = PF.stft(torch.from_numpy(x), win, hop, match_stride=match_stride,
+                  method="matmul").numpy()
     assert got.shape == want.shape and got.dtype == np.complex64
     # the JAX package's stated accuracy of its matmul DFT
     assert _rel(got, want) < 1e-5
@@ -57,7 +58,8 @@ def test_istft_round_trip_and_jax(win, hop, match_stride):
     mod = spec.numpy() * np.random.RandomState(12).uniform(0, 1.5, spec.shape[-2:]).astype(np.float32)
     want = np.asarray(JF.istft(jnp.asarray(mod), win, hop, match_stride=match_stride,
                                length=T, method="matmul"))
-    got = PF.istft(torch.from_numpy(mod), win, hop, match_stride=match_stride, length=T).numpy()
+    got = PF.istft(torch.from_numpy(mod), win, hop, match_stride=match_stride, length=T,
+                   method="matmul").numpy()
     assert np.abs(got - want).max() < 1e-4
 
 
@@ -86,19 +88,28 @@ def test_bf16_synthesis_stays_within_its_perturbation_bound():
 
 
 def test_unported_methods_raise():
+    """What the port does not take raises: a name it does not know, the
+    JAX package's TPU interpreter modes, and the analysis ``matmul_bf16``,
+    which no path of the port calls yet."""
     x = torch.zeros(1, 4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PF.stft(x, 512, 128, method="fft")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Unknown stft method"):
+        PF.stft(x, 512, 128, method="matmul_bf16_fused")
+    with pytest.raises(ValueError, match="Unknown stft method"):
+        PF.stft(x, 512, 128, method="matmul_bf16")
+    with pytest.raises(ValueError, match="Unknown istft method"):
         PF.istft(torch.zeros(1, 257, 9, dtype=torch.complex64), 512, 128, length=4096,
-                 method="matmul_bf16_fused")
+                 method="matmul_bf16_fused_interpret")
+    with pytest.raises(ValueError, match="Unknown stft method"):
+        PF.mel_spectrogram(x, 16000, 40, method="dft")
+    with pytest.raises(ValueError, match="pallas_interpret"):
+        PL.loudness(x[:, None], 16000, use_fir=True, conv_method="pallas_interpret")
 
 
 @pytest.mark.parametrize("n_mels,sr", [(80, 44100), (40, 16000)])
 def test_mel_spectrogram_matches_jax(n_mels, sr):
     x = _noise((2, 1, sr), 5, 0.3)
     want = np.asarray(JF.mel_spectrogram(jnp.asarray(x), sr, n_mels, method="matmul"))
-    got = PF.mel_spectrogram(torch.from_numpy(x), sr, n_mels).numpy()
+    got = PF.mel_spectrogram(torch.from_numpy(x), sr, n_mels, method="matmul").numpy()
     assert got.shape == want.shape
     assert _rel(got, want) < 1e-5
 
@@ -164,7 +175,7 @@ def test_long_equalizer_kernel_takes_the_fft_path():
     """20 bands at 44.1 kHz need 2667 taps, beyond kernel A: the FFT path."""
     x = _noise((2, 1, 22050), 8, 0.3)
     db = -np.random.RandomState(9).rand(2, 20).astype(np.float32)
-    assert 2 * PFL._split_band_kernels(44100, 20)[1] + 1 > HK.MAX_TAPS
+    assert 2 * PFL._split_band_kernels(44100, 20)[1] + 1 > HK.MAX_TAPS_BATCH
     want = np.asarray(JFL.equalizer(jnp.asarray(x), jnp.asarray(db), 44100, conv_method="fft"))
     got = PFL.equalizer(torch.from_numpy(x), torch.from_numpy(db), 44100).numpy()
     assert _rel(got, want) < 1e-4

@@ -6,6 +6,9 @@ the CPU.
 (b) The JAX package's batch, fed into the port (``util.from_numpy_tree``),
     comes out of Compose -> pitch shift -> mel -> LUFS as it does from the
     JAX chain.
+(b') The same for the reference-parity configuration: the FIR meter of
+     ``set_fast_meter(True)`` (kernel C's route) and the fused bf16
+     synthesis (kernel E's route).
 (c) The port reproduces the committed regression WAVs of the main path's
     transforms (it never writes them).
 """
@@ -84,19 +87,20 @@ def test_same_draws(batches):
                 assert np.array_equal(np.asarray(want), np.asarray(got)), (name, key)
 
 
-def _jax_chain(ds, batch):
+def _jax_chain(ds, batch, synthesis_method="matmul"):
     out = ds.transform(batch["signal"].clone(), **batch["transform_args"])
-    audio = JS.pitch_shift(out.audio_data, 2.0, SR, synthesis_method="matmul",
+    audio = JS.pitch_shift(out.audio_data, 2.0, SR, synthesis_method=synthesis_method,
                            pv_formulation="phasor_fused_interpret")
     return (np.asarray(audio), np.asarray(JF.mel_spectrogram(audio, SR, 80, method="matmul")),
             np.asarray(JL.loudness(audio, SR)))
 
 
-def _port_chain(ds, batch):
+def _port_chain(ds, batch, synthesis_method="matmul"):
     out = ds.transform(batch["signal"].clone(), **batch["transform_args"])
-    audio = PS.pitch_shift(out.audio_data, 2.0, SR, synthesis_method="matmul",
+    audio = PS.pitch_shift(out.audio_data, 2.0, SR, synthesis_method=synthesis_method,
                            pv_formulation="phasor_fused")
-    return audio.numpy(), PF.mel_spectrogram(audio, SR, 80).numpy(), PL.loudness(audio, SR).numpy()
+    return (audio.numpy(), PF.mel_spectrogram(audio, SR, 80, method="matmul").numpy(),
+            PL.loudness(audio, SR).numpy())
 
 
 def test_same_output(batches):
@@ -112,6 +116,33 @@ def test_same_output(batches):
     own = _port_chain(pds, pu.prepare_batch(pbatch, "cpu"))
     for a, b in zip(own, (audio, mel, lufs)):
         assert np.array_equal(a, b)
+
+
+def test_same_output_reference_parity(batches):
+    """Both packages with ``set_fast_meter(True)`` (every meter call of the
+    chain, the transforms' included, on the 1023-tap FIR) and the fused bf16
+    synthesis; the meters are restored whatever happens."""
+    jds, jbatch, pds, _ = batches
+    fed = pu.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jbatch), "cpu")
+    try:
+        JL.set_fast_meter(True)
+        PL.set_fast_meter(True)
+        want = _jax_chain(jds, jbatch, "matmul_bf16_fused_interpret")
+        audio, mel, lufs = _port_chain(pds, fed, "matmul_bf16_fused")
+    finally:
+        JL.set_fast_meter(False)
+        PL.set_fast_meter(False)
+    assert audio.shape == want[0].shape == (2, 1, SR)
+    assert np.abs(audio - want[0]).max() < 1e-4
+    # a spectrum value within fp32 rounding of a bf16 rounding boundary goes
+    # to different bf16 neighbours in the two packages, one bf16 ulp (2**-8)
+    # of itself apart; the mel frames sum many such samples (1.7e-4 here,
+    # against 1e-4 for the fp32 synthesis above)
+    assert np.abs(mel - want[1]).max() / np.abs(want[1]).max() < 1e-3
+    assert np.abs(lufs - want[2]).max() < 0.01
+    # the configuration does change the output: the FIR meter's gains and
+    # the bf16 synthesis against the exact meter and the fp32 synthesis
+    assert np.abs(audio - _port_chain(pds, fed)[0]).max() > 1e-4
 
 
 @pytest.mark.parametrize("name", MAIN_PATH)
