@@ -2,10 +2,11 @@
 PyTorch, for one NVIDIA Hopper card (H100).
 
 The JAX package beside it is the reference. This package imports neither
-it nor JAX. Its two kernels, the per-item causal FIR and the fused phasor
-phase vocoder, are CUDA C++ under ``csrc/``, built with ``nvcc`` at first
-use (``_build``) and wrapped in ``ops.hopper_kernels`` beside their plain
-PyTorch versions.
+it nor JAX. Its five kernels (the causal FIRs, the fused phasor phase
+vocoder, the rotation scan and the fused bf16 synthesis) are CUDA C++
+under ``csrc/``, built with ``nvcc`` at first use (``_build``) and wrapped
+in ``ops.hopper_kernels`` beside their plain PyTorch versions. Signals and
+loaders compute on the card unless they are given ``device="cpu"``.
 """
 __version__ = "0.1.0"
 

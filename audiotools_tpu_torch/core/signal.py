@@ -3,8 +3,9 @@
 Counterpart of the augmentation-path subset of
 ``audiotools_tpu/core/signal.py``. The class holds tensors and host
 metadata and no parameters, so it is a plain class (not an
-``nn.Module``). Signals read from files hold CPU tensors until the loader
-moves the collated batch to the device.
+``nn.Module``). A signal built from a path or an array goes to the card
+unless it is given ``device="cpu"``; the data loader decodes on the host
+and moves each collated batch to the card.
 """
 import copy
 import pathlib
@@ -22,8 +23,8 @@ from ..ops import resample as _resample
 class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
     """Batched audio with its sample rate.
 
-    >>> signal = AudioSignal(np.zeros(44100, np.float32), 44100)
-    >>> signal = AudioSignal("speech.wav", offset=1.0, duration=5.0)
+    >>> signal = AudioSignal(np.zeros(44100, np.float32), 44100)  # on the card
+    >>> signal = AudioSignal("speech.wav", offset=1.0, duration=5.0, device="cpu")
     """
 
     def __init__(self, audio_path_or_array, sample_rate: int = None,
@@ -36,10 +37,13 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         if isinstance(source, (list, tuple)):
             source = np.asarray(source)
         if isinstance(source, (str, pathlib.Path)):
-            self.load_from_file(source, offset=offset, duration=duration, device=device)
+            self.load_from_file(source, offset=offset, duration=duration,
+                                device=device or util.default_device())
         elif isinstance(source, (np.ndarray, torch.Tensor)):
             if sample_rate is None:
                 raise ValueError("sample_rate is required when constructing from an array")
+            if device is None and isinstance(source, np.ndarray):
+                device = util.default_device()  # a tensor stays where it is
             self.load_from_array(source, sample_rate, device=device)
         else:
             raise ValueError(
@@ -67,20 +71,24 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         """An excerpt louder than ``loudness_cutoff`` LUFS, metered on the
         host: the first draw alone, then (if it misses) the remaining
         ``num_tries - 1`` draws in one batched meter call, taking the first
-        that passes (or the last). ``num_tries=None`` retries until one passes."""
+        that passes (or the last). ``num_tries=None`` retries until one passes.
+        The chosen excerpt, and its loudness, then go to ``device`` (the card
+        unless told otherwise)."""
         from ..ops.loudness import host_loudness
 
+        device = kwargs.pop("device", None)
         state = util.random_state(state)
-        excerpt = cls.excerpt(audio_path, state=state, **kwargs)
+        excerpt = cls.excerpt(audio_path, state=state, device="cpu", **kwargs)
         if loudness_cutoff is None:
-            return excerpt
+            return excerpt.to(device or util.default_device())
         loudness = host_loudness(excerpt.audio_data.numpy(), excerpt.sample_rate,
                                  dtype=np.float32)
         while np.max(loudness) <= loudness_cutoff:
             n_rest = 7 if num_tries is None else max(int(num_tries) - 1, 0)
             if n_rest == 0:
                 break
-            cands = [cls.excerpt(audio_path, state=state, **kwargs) for _ in range(n_rest)]
+            cands = [cls.excerpt(audio_path, state=state, device="cpu", **kwargs)
+                     for _ in range(n_rest)]
             louds = np.atleast_1d(host_loudness(
                 np.concatenate([c.audio_data.numpy() for c in cands], axis=0),
                 cands[0].sample_rate, dtype=np.float32,
@@ -91,7 +99,7 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
             if num_tries is not None:
                 break
         excerpt._loudness = torch.as_tensor(np.asarray(loudness, dtype=np.float32))
-        return excerpt
+        return excerpt.to(device or util.default_device())
 
     @classmethod
     def zeros(cls, duration, sample_rate, num_channels=1, batch_size=1, **kwargs):
@@ -130,7 +138,7 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         return stacked
 
     def load_from_file(self, audio_path, offset, duration, device=None):
-        """Decode a file on the host into a CPU tensor."""
+        """Decode a file on the host, then move it to ``device``."""
         from ..io import load_audio
 
         data, sample_rate = load_audio(audio_path, offset=offset, duration=duration)
@@ -144,7 +152,8 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         return self.to(device)
 
     def load_from_array(self, audio_array, sample_rate, device=None):
-        """Wrap an array as ``(B, C, T)`` (a numpy array shares its memory)."""
+        """Wrap an array as ``(B, C, T)`` on ``device`` (a numpy array kept
+        on the host shares its memory)."""
         data = audio_array
         if isinstance(data, np.ndarray):
             data = torch.from_numpy(np.ascontiguousarray(data))

@@ -58,6 +58,14 @@ def info(audio_path) -> Info:
     return Info(sample_rate=i.sample_rate, num_frames=i.num_frames)
 
 
+def default_device() -> torch.device:
+    """The card, where the port computes unless it is told ``device="cpu"``.
+    Raises when there is no card: nothing carries on on the host unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to compute on the host")
+    return torch.device("cuda")
+
+
 def ensure_tensor(x, ndim: int = None, batch_size: int = None, device=None):
     """Coerce ``x`` to a tensor (float64 becomes float32) with at least
     ``ndim`` dimensions (trailing axes added) and a leading ``batch_size``."""
@@ -232,7 +240,7 @@ def from_numpy_tree(tree, device):
         if isinstance(v, (list, tuple)):
             return type(v)(walk(x) for x in v)
         if hasattr(v, "audio_data") and hasattr(v, "sample_rate"):
-            sig = AudioSignal(np.array(v.audio_data), v.sample_rate)
+            sig = AudioSignal(np.array(v.audio_data), v.sample_rate, device="cpu")
             loud = getattr(v, "_loudness", None)
             if loud is not None:
                 sig._loudness = torch.as_tensor(np.asarray(loud))

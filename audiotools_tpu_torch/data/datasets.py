@@ -52,17 +52,18 @@ class AudioLoader:
     def __call__(self, state, sample_rate: int, duration: float,
                  loudness_cutoff: float = -40, num_channels: int = 1,
                  offset: float = None, global_idx: int = None):
-        """Draw one excerpt: a salient excerpt at a random offset, or the one
-        at ``offset``, as ``{"signal", "source_idx", "item_idx", "source",
-        "path"}``."""
+        """Draw one excerpt, decoded and metered on the host: a salient
+        excerpt at a random offset, or the one at ``offset``, as
+        ``{"signal", "source_idx", "item_idx", "source", "path"}``."""
         entry, source_idx, item_idx = self._select(state, global_idx)
         path = entry["path"]
         if offset is None:
             signal = AudioSignal.salient_excerpt(
-                path, duration=duration, state=state, loudness_cutoff=loudness_cutoff
+                path, duration=duration, state=state, loudness_cutoff=loudness_cutoff,
+                device="cpu",
             )
         else:
-            signal = AudioSignal(path, offset=offset, duration=duration)
+            signal = AudioSignal(path, offset=offset, duration=duration, device="cpu")
         if num_channels == 1:
             signal = signal.to_mono()
         signal = signal.resample(sample_rate)

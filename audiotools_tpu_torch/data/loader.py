@@ -2,12 +2,12 @@
 
 Counterpart of ``audiotools_tpu/data/loader.py``. Worker threads run
 ``dataset[idx]`` (host decode and parameter draws: numpy work that
-releases the interpreter lock), the batch is collated, and with
-``device`` set it is staged there by a background thread: numeric arrays
-and signal audio are copied from pinned memory without blocking, on a
-side stream on CUDA, so the copy of batch N+1 overlaps the consumer's
-work on batch N. The background thread stops when the consumer stops
-iterating, including after an early ``break``.
+releases the interpreter lock), the batch is collated, and it is staged
+onto the device (the card unless ``device="cpu"``) by a background
+thread: numeric arrays and signal audio are copied from pinned memory
+without blocking, on a side stream on CUDA, so the copy of batch N+1
+overlaps the consumer's work on batch N. The background thread stops
+when the consumer stops iterating, including after an early ``break``.
 """
 import queue
 import threading
@@ -53,7 +53,9 @@ class DataLoader:
     prefetch_batches : int
         Batches kept ready ahead of the consumer.
     device : optional
-        Stage every batch onto this device (``util.prepare_batch``).
+        Stage every batch onto this device (``util.prepare_batch``); by
+        default the card (raising when there is none). ``"cpu"`` keeps the
+        batches on the host.
     """
 
     def __init__(self, dataset, batch_size: int = 1, num_workers: int = 0,
@@ -62,7 +64,7 @@ class DataLoader:
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.prefetch_batches = prefetch_batches
-        self.device = torch.device(device) if device is not None else None
+        self.device = torch.device(device) if device is not None else util.default_device()
 
     def _index_batches(self):
         n = len(self.dataset)
@@ -75,8 +77,6 @@ class DataLoader:
     def _stage(self, batch, stream):
         """Copy ``batch`` to the device; returns it with the CUDA event that
         marks the end of its copy (``None`` when there is nothing to wait on)."""
-        if self.device is None:
-            return batch, None
         if stream is None:
             return util.prepare_batch(batch, self.device), None
         with torch.cuda.stream(stream):
@@ -105,7 +105,7 @@ class DataLoader:
 
         out_q = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
-        on_cuda = self.device is not None and self.device.type == "cuda"
+        on_cuda = self.device.type == "cuda"
         stream = torch.cuda.Stream(self.device) if on_cuda else None
 
         def put(item):

@@ -354,13 +354,16 @@ def rotation_cumprod(ur, ui, cr, ci):
 # E: fused bf16 iSTFT synthesis (replaces pallas_kernels.istft_synthesis_fused)
 # ---------------------------------------------------------------------------
 
-_SYN_K_CHUNK = 32  # the kernel's contraction chunk (bf16 values)
-_SYN_COLS = 64  # the kernel's output columns per block
+# The weights' layout is the kernel's tile (csrc/istft_synthesis.cu): rows
+# padded to whole chunks of KC, each shift's column block to whole tiles of
+# TN, so that a tile's columns never reach into the next shift's.
+_SYN_K_CHUNK = 16  # KC: bf16 contraction values a chunk
+_SYN_COLS = 128  # TN: output columns a block
 
 
 def _syn_layout(n_freq: int, hop: int):
-    """``(hop_p, k2)``: the weights' column blocks padded to the block width,
-    the contraction padded to the chunk."""
+    """``(hop_p, k2)``: the weights' column blocks and rows padded as the
+    kernel takes them (zeros in the padding)."""
     return -(-hop // _SYN_COLS) * _SYN_COLS, -(-2 * n_freq // _SYN_K_CHUNK) * _SYN_K_CHUNK
 
 

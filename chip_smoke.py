@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from ``audiotools_tpu_torch/csrc`` and
 runs, on card 0:
 
 1. the device, its name and power limit (``nvidia-smi``), the kernel build
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once, with ptxas's registers and spills),
+   and the default device of signals and loaders (the card);
 2. kernel A (per-item causal FIR) against its plain PyTorch version at the
    equalizers' shapes (64 rows of 5 s or 1 s at 44.1 kHz; 641 or 231 taps);
 3. kernel B (fused phase vocoder) against its plain version at the pitch
@@ -30,7 +31,12 @@ runs, on card 0:
 6. the same chains on the card and on the CPU (plain versions) for the
    first 4 clips, against stated tolerances.
 
-Any failed check exits non-zero. The last lines are the kernel table, the
+Every kernel is also held against its plain version at ragged shapes of
+its tiling, and timed beside its bound (the larger of its operations over
+the card's peak rate for their type and its bytes, each input read once and
+each output written once, over the memory rate) and beside the one PyTorch
+call that computes the same function, where there is one (the port never
+calls it). Any failed check exits non-zero. The last lines are the kernel table, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. Without a
 CUDA device the script exits non-zero and prints no result.
 """
@@ -45,12 +51,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SR = 44100
 BATCH = 64
 DURATION = 5.0
 N_ITER = 5
 N_CHECK = 4
+
+# published peaks of an H100 SXM (dense): fp32 outside the tensor cores,
+# bf16 tensor cores, HBM3
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+HBM_BYTES = 3.35e12
 
 # kernel vs plain version on the card, relative to the largest output. All
 # sum in fp32; E rounds its operands to bf16 as its plain version does and
@@ -62,6 +75,9 @@ KERNEL_RTOL = 1e-5
 # rounding boundary goes to different bf16 neighbours on the two sides,
 # which moves it by one bf16 ulp, 2**-8 ~ 3.9e-3 of itself: the bound for
 # the largest outputs.
+# kernel E's peak-memory increment at the chain's shape: its output (57 MB)
+# and nothing of the size of the spectrum or the frames
+E_PEAK_LIMIT = 60e6
 CHAIN_TOL = {
     "matmul": {"audio_abs": 1e-4, "mel_rel": 1e-4, "lufs_db": 0.01},
     "matmul_bf16": {"audio_abs": 4e-3, "mel_rel": 4e-3, "lufs_db": 0.01},
@@ -154,6 +170,21 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def bound(flops, peak, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def yardsticks(ms, flops, peak, nbytes, library=None, library_fn=None, n_library=3):
+    """The kernel line's keys for one shape: bound, what bounds it, the share
+    of it reached, and the library call's time (``library_fn``, timed here)."""
+    bound_ms, bound_by = bound(flops, peak, nbytes)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "library": library,
+            "library_ms": time_ms(library_fn, n_library) if library_fn is not None else None}
+
+
 def compare_kernel(name, kernel, plain, n_kernel, n_plain):
     """Kernel vs plain on the same inputs: error and times, measured in
     turns (plain, kernel, kernel, plain)."""
@@ -192,14 +223,29 @@ def phase_device():
     _build.build_all()  # one nvcc per source, all started together
     print(f"[build] all sources: {time.perf_counter() - t0:.2f} s")
     for source in _build.SOURCES:
-        ptxas = [ln.strip() for ln in _build.build_log(source).splitlines() if "registers" in ln]
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in _build.build_log(source).splitlines()
+                 if "Used" in ln or "spill" in ln]
         print(f"[build] {source}: nvcc {_build.BUILD_SECONDS.get(source, 0.0):.2f} s "
               f"{' | '.join(ptxas)}")
     return card
 
 
+def phase_defaults():
+    """Signals built from arrays go to the card unless told ``device="cpu"``;
+    tensors stay where they are."""
+    from audiotools_tpu_torch import AudioSignal
+
+    x = np.zeros((1, 1, 100), np.float32)
+    devices = (AudioSignal(x, SR).device.type, AudioSignal(x, SR, device="cpu").device.type,
+               AudioSignal(torch.from_numpy(x), SR).device.type)
+    print(f"[defaults] AudioSignal from numpy: {devices[0]}; with device='cpu': {devices[1]}; "
+          f"from a CPU tensor: {devices[2]}")
+    expect(devices == ("cuda", "cpu", "cpu"), f"default devices {devices}")
+
+
 def phase_kernel_a(dev):
     from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
 
     rng = np.random.RandomState(1)
     results = {}
@@ -216,11 +262,18 @@ def phase_kernel_a(dev):
             lambda: HK.fir_causal_batch_plain(x, h), 10, 3,
         )
         gflop = 2.0 * rows * T * L / 1e9
+        xpad, hflip = F.pad(x, (L - 1, 0))[None], h.flip(-1)[:, None, :].contiguous()
+        with strict_fp32():
+            yard = yardsticks(ms, gflop * 1e9, FP32_FLOPS, 4.0 * rows * (2 * T + L),
+                              "F.conv1d (cuDNN, TF32 off)",
+                              lambda: F.conv1d(xpad, hflip, groups=rows))
         print(f"[kernel A] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
-              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms")
+              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms | bound "
+              f"{yard['bound_ms']:.4f} ms ({yard['bound_by']}, {yard['share_of_bound']:.1%}) | "
+              f"{yard['library']} {yard['library_ms']:.4f} ms")
         expect(rel_err < KERNEL_RTOL, f"kernel A disagrees with its plain version ({label})")
-        results[label] = (abs_err, ms, plain_ms)
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
     return results
 
 
@@ -240,16 +293,26 @@ def phase_kernel_b(dev):
         lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=True), 10, 2,
     )
     gbytes = 8.0 * np.prod(shape[:-1]) * (2 * len(i0) + 2 * len(i0)) / 1e9
+    # each input frame read once, output and phasor track written once; ~31
+    # fp32 operations a bin and step (two magnitudes, the interpolated
+    # magnitude, the rotation, its normalisation, the phasor update)
+    rows = np.prod(shape[:-1])
+    yard = yardsticks(ms, 31.0 * rows * len(i0), FP32_FLOPS,
+                      8.0 * rows * (shape[-1] + 2 * len(i0)) + 12.0 * len(i0))
     print(f"[kernel B] {shape} -> {len(i0)} steps (with phasor): max_abs_err {abs_err:.3e} "
           f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
-          f"(~{gbytes / ms:.1f} TB/s of frame traffic) | plain {plain_ms:.4f} ms")
+          f"(~{gbytes / ms:.1f} TB/s of frame traffic) | plain {plain_ms:.4f} ms | bound "
+          f"{yard['bound_ms']:.4f} ms ({yard['bound_by']}, {yard['share_of_bound']:.1%})")
+    print("[kernel B] library: none; no PyTorch call computes the phasor vocoder's "
+          "step recurrence")
     expect(rel_err < KERNEL_RTOL, "kernel B disagrees with its plain version")
-    return abs_err, ms, plain_ms
+    return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
 
 
 def phase_kernel_c(dev):
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
 
     rng = np.random.RandomState(3)
     n = int(SR * DURATION)
@@ -270,12 +333,18 @@ def phase_kernel_c(dev):
             "fir_causal", lambda: HK.fir_causal(x, ht), lambda: HK.fir_causal_plain(x, ht), 5, 2,
         )
         gflop = 2.0 * rows * T * L / 1e9
+        xpad, hflip = F.pad(x[:, None], (L - 1, 0)), ht.flip(0)[None, None].contiguous()
+        with strict_fp32():
+            yard = yardsticks(ms, gflop * 1e9, FP32_FLOPS, 4.0 * (2 * rows * T + L),
+                              "F.conv1d (cuDNN, TF32 off)", lambda: F.conv1d(xpad, hflip), 2)
         print(f"[kernel C] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
               f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms "
-              f"({gflop / plain_ms:.2f} TFLOP/s)")
+              f"({gflop / plain_ms:.2f} TFLOP/s) | bound {yard['bound_ms']:.4f} ms "
+              f"({yard['bound_by']}, {yard['share_of_bound']:.1%}) | {yard['library']} "
+              f"{yard['library_ms']:.4f} ms")
         expect(rel_err < KERNEL_RTOL, f"kernel C disagrees with its plain version ({label})")
-        results[label] = (abs_err, ms, plain_ms)
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
     return results
 
 
@@ -293,11 +362,18 @@ def phase_kernel_d(dev):
         lambda: HK.rotation_cumprod_plain(ur, ui, cr, ci), 10, 2,
     )
     gbytes = 4.0 * rows * n * 4 / 1e9
+    # the library call: torch.cumprod of the complex rotations, built
+    # outside the timed region; it is inclusive (no seed), D exclusive
+    u = torch.complex(ur, ui)
+    yard = yardsticks(ms, 6.0 * rows * n, FP32_FLOPS, 4.0 * rows * (4 * n + 2),
+                      "torch.cumprod (complex64, inclusive)", lambda: torch.cumprod(u, dim=-1), 10)
+    del u
     print(f"[kernel D] ({rows}, {n}): max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
           f"(tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms ({gbytes / ms:.2f} TB/s) "
-          f"| plain {plain_ms:.4f} ms")
+          f"| plain {plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
+          f"{yard['share_of_bound']:.1%}) | {yard['library']} {yard['library_ms']:.4f} ms")
     expect(rel_err < KERNEL_RTOL, "kernel D disagrees with its plain version")
-    return (abs_err, ms, plain_ms), (ur, ui, cr, ci)
+    return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard), (ur, ui, cr, ci)
 
 
 def phase_rotation(planes):
@@ -357,11 +433,23 @@ def phase_kernel_e(dev):
             lambda: HK.istft_synthesis_fused_plain(spec, w, hop, env), 10, 3,
         )
         gflop = 2.0 * BATCH * nt * 2 * n_freq * n_fft / 1e9
+        # the library call: torch.istft of the same spectrum (frequency-major,
+        # copied outside the timed region), Hann window, hop, the same
+        # samples after the center trim, fp32 (cuFFT)
+        spec_fm = spec.transpose(1, 2).contiguous()
+        window = torch.hann_window(n_fft, device=dev)
+        nbytes = spec.numel() * 8 + w.numel() * 2 + env.numel() * 4 + BATCH * env.numel() * 4
+        yard = yardsticks(ms, gflop * 1e9, BF16_FLOPS, nbytes, "torch.istft (fp32, cuFFT)",
+                          lambda: torch.istft(spec_fm, n_fft, hop, window=window, center=True,
+                                              length=hop * (nt - 1)), 10)
+        del spec_fm
         print(f"[kernel E] {label} {shape} x ({n_fft}, hop {hop}): max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
-              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms")
+              f"({gflop / ms:.2f} TFLOP/s) | plain {plain_ms:.4f} ms | bound "
+              f"{yard['bound_ms']:.4f} ms ({yard['bound_by']}, {yard['share_of_bound']:.1%}) | "
+              f"{yard['library']} {yard['library_ms']:.4f} ms")
         expect(rel_err < KERNEL_RTOL, f"kernel E disagrees with its plain version ({label})")
-        results[label] = (abs_err, ms, plain_ms)
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
 
     # peak memory at the chain's shape (432 synthesis frames): E against the
     # unfused bf16 iSTFT, on a spectrum laid out as kernel B writes it
@@ -388,7 +476,48 @@ def phase_kernel_e(dev):
         expect(peaks["matmul_bf16_fused", match_stride] < frames,
                f"kernel E's peak-memory increment (match_stride {match_stride}) is not below "
                f"the frame tensor it never builds")
+        expect(peaks["matmul_bf16_fused", match_stride] <= E_PEAK_LIMIT,
+               f"kernel E's peak-memory increment (match_stride {match_stride}) is above "
+               f"{E_PEAK_LIMIT / 1e6:g} MB")
     return results, peaks
+
+
+def phase_ragged(dev):
+    """Kernels A, C and E against their plain versions at the shapes of
+    ``ops.ragged_shapes``, which do not fill their tiles."""
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
+
+    rng = np.random.RandomState(6)
+    worst = {}
+    for kind, rows, T, L in ([("A", *s) for s in RAGGED.FIR_BATCH]
+                             + [("C", *s) for s in RAGGED.FIR_SHARED]):
+        x = torch.from_numpy(rng.randn(rows, T).astype(np.float32)).to(dev)
+        if kind == "A":
+            h = torch.from_numpy((rng.randn(rows, L) * 0.05).astype(np.float32)).to(dev)
+            got, want = HK.fir_causal_batch(x, h), HK.fir_causal_batch_plain(x, h)
+        else:
+            h = torch.from_numpy((rng.randn(L) * 0.05).astype(np.float32)).to(dev)
+            got, want = HK.fir_causal(x, h), HK.fir_causal_plain(x, h)
+        err = float((got - want).abs().max() / want.abs().max())
+        worst[kind] = max(worst.get(kind, 0.0), err)
+    for B, nt, n_fft, hop in RAGGED.SYNTHESIS:
+        n_freq = n_fft // 2 + 1
+        spec = torch.from_numpy(((rng.randn(B, nt, n_freq) + 1j * rng.randn(B, nt, n_freq)) * 0.1)
+                                .astype(np.complex64)).to(dev)
+        (w,) = PF._on_device(PF._synthesis_design, ("hann", n_fft, hop), dev)
+        for edge in (0, 2):
+            (env,) = PF._on_device(PF._inverse_envelope, ("hann", n_fft, hop, nt + 2 * edge), dev)
+            got = HK.istft_synthesis_fused(spec, w, hop, env, edge)
+            want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
+            err = float((got - want).abs().max() / want.abs().max())
+            worst["E"] = max(worst.get("E", 0.0), err)
+    torch.cuda.synchronize()
+    print("[ragged] worst rel. err against the plain versions: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {KERNEL_RTOL:g})")
+    for k, v in worst.items():
+        expect(v < KERNEL_RTOL, f"kernel {k} disagrees with its plain version at a ragged shape")
 
 
 def make_dataset(root, n_examples):
@@ -527,11 +656,13 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = phase_device()
+    phase_defaults()
     a = phase_kernel_a(dev)
     b = phase_kernel_b(dev)
     c = phase_kernel_c(dev)
     d, planes = phase_kernel_d(dev)
     e, _ = phase_kernel_e(dev)
+    phase_ragged(dev)
     launches = {"rotation": phase_rotation(planes)}
     del planes
     with tempfile.TemporaryDirectory() as tmp:
@@ -541,25 +672,29 @@ def main():
         from audiotools_tpu_torch.data import DataLoader
 
         t0 = time.perf_counter()
-        batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8, device=dev)))
+        batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8)))  # to the card by default
         torch.cuda.synchronize()
         print(f"[chain] first batch through DataLoader (8 workers, staged to the card): "
               f"{time.perf_counter() - t0:.2f} s")
+        expect(batch["signal"].device.type == "cuda",
+               f"the loader staged the batch on {batch['signal'].device}, not the card")
         launches.update({label: phase_chain(ds, batch, label, *rest) for label, *rest in PATHS})
         phase_card_vs_cpu(ds, dev)
     if FAILED:
         fail(f"{len(FAILED)} failed checks: {FAILED}")
 
     def row(name, source, line, path, results, key=None):
-        """``results``: {shape label: (abs_err, ms, plain_ms)}, timed at
-        ``key``, or one such tuple."""
+        """``results``: {shape label: measurements}, reported at ``key``, or
+        the measurements of one shape."""
         if key is None:
             results, key = {key: results}, key
+        at = results[key]
         return {"name": name, "route": "cuda", "source": f"audiotools_tpu_torch/csrc/{source}",
                 "replaces": f"audiotools_tpu/ops/pallas_kernels.py:{line}",
                 "launches": launches[path][name],
-                "max_abs_err": max(v[0] for v in results.values()),
-                "ms": results[key][1], "plain_ms": results[key][2]}
+                "max_abs_err": max(v["abs_err"] for v in results.values()),
+                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                                      "library", "library_ms")}}
 
     kernels = [
         row("fir_causal_batch", "fir_causal_batch.cu", 182, "main", a, "equalizer"),

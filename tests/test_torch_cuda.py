@@ -14,6 +14,7 @@ from audiotools_tpu_torch.ops import fft as PF
 from audiotools_tpu_torch.ops import filters as PFL
 from audiotools_tpu_torch.ops import hopper_kernels as HK
 from audiotools_tpu_torch.ops import loudness as PL
+from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
 from audiotools_tpu_torch.ops import stretch as PS
 
 pytestmark = pytest.mark.cuda
@@ -49,6 +50,36 @@ def test_fir_kernel_matches_plain(cuda, rows, T, L):
     assert HK.LAUNCHES["fir_causal_batch"] == before + 1
     assert got.shape == x.shape
     assert _rel_err(got, HK.fir_causal_batch_plain(x, h)) < KERNEL_RTOL
+
+
+@pytest.mark.parametrize("rows,T,L", RAGGED.FIR_BATCH)
+def test_fir_kernel_ragged_tiles(cuda, rows, T, L):
+    rng = np.random.RandomState(rows * 31 + T + L)
+    x = torch.from_numpy(rng.randn(rows, T).astype(np.float32)).to(cuda)
+    h = torch.from_numpy((rng.randn(rows, L) * 0.05).astype(np.float32)).to(cuda)
+    got = HK.fir_causal_batch(x, h)
+    assert _rel_err(got, HK.fir_causal_batch_plain(x, h)) < KERNEL_RTOL
+
+
+@pytest.mark.parametrize("rows,T,L", RAGGED.FIR_SHARED)
+def test_shared_fir_kernel_ragged_tiles(cuda, rows, T, L):
+    rng = np.random.RandomState(rows * 37 + T + L)
+    x = torch.from_numpy(rng.randn(rows, T).astype(np.float32)).to(cuda)
+    h = torch.from_numpy((rng.randn(L) * 0.05).astype(np.float32)).to(cuda)
+    assert _rel_err(HK.fir_causal(x, h), HK.fir_causal_plain(x, h)) < KERNEL_RTOL
+
+
+def test_fir_kernels_equal_cudnn_at_the_main_path_shapes(cuda):
+    """Each output sums its taps in the order cuDNN's conv1d does (TF32
+    off), one fp32 FMA a tap: the equalizer's and the meter's calls agree
+    bit for bit."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(64, 220500 + 640).astype(np.float32)).to(cuda)
+    h = torch.from_numpy((rng.randn(64, 641) * 0.05).astype(np.float32)).to(cuda)
+    assert torch.equal(HK.fir_causal_batch(x, h), HK.fir_causal_batch_plain(x, h))
+    meter = torch.from_numpy(PL._composed_fir(44100, "K-weighting", 512)).to(cuda)
+    x = x[:, :220500].contiguous()
+    assert torch.equal(HK.fir_causal(x, meter), HK.fir_causal_plain(x, meter))
 
 
 def test_fir_kernel_rejects_what_it_cannot_take(cuda):
@@ -192,6 +223,21 @@ def test_synthesis_kernel_matches_plain(cuda, B, nt, n_fft, hop):
         assert _rel_err(got, want) < KERNEL_RTOL
 
 
+@pytest.mark.parametrize("B,nt,n_fft,hop", RAGGED.SYNTHESIS)
+def test_synthesis_kernel_ragged_tiles(cuda, B, nt, n_fft, hop):
+    rng = np.random.RandomState(nt + n_fft)
+    n_freq = n_fft // 2 + 1
+    spec = torch.from_numpy(((rng.randn(B, nt, n_freq) + 1j * rng.randn(B, nt, n_freq)) * 0.1)
+                            .astype(np.complex64)).to(cuda)
+    (w,) = PF._on_device(PF._synthesis_design, ("hann", n_fft, hop), cuda)
+    for edge in (0, 2):
+        (env,) = PF._on_device(PF._inverse_envelope, ("hann", n_fft, hop, nt + 2 * edge), cuda)
+        got = HK.istft_synthesis_fused(spec, w, hop, env, edge)
+        want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
+        assert got.shape == want.shape
+        assert _rel_err(got, want) < KERNEL_RTOL
+
+
 def test_fused_istft_on_card_matches_cpu(cuda):
     rng = np.random.RandomState(8)
     x = torch.from_numpy((rng.randn(2, 1, 22050) * 0.3).astype(np.float32))
@@ -201,6 +247,23 @@ def test_fused_istft_on_card_matches_cpu(cuda):
     want = PF.istft(spec, 2048, 512, match_stride=True, original_length=22050,
                     method="matmul_bf16_fused")
     assert _rel_err(got, want) < KERNEL_RTOL
+
+
+def test_salient_excerpt_returns_on_the_card(cuda, tmp_path):
+    """Drawn and metered on the host, the excerpt goes to the card by
+    default: the same offset and samples as with ``device="cpu"``."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.io import write_wav
+
+    path = tmp_path / "a.wav"
+    write_wav(path, (np.random.RandomState(10).randn(1, 44100) * 0.1).astype(np.float32), 44100)
+    for cutoff in (None, -70.0, 0.0):  # no meter, the first draw, every retry
+        kw = dict(loudness_cutoff=cutoff, num_tries=4, state=3, duration=0.5)
+        got = AudioSignal.salient_excerpt(path, **kw)
+        want = AudioSignal.salient_excerpt(path, device="cpu", **kw)
+        assert got.device.type == "cuda"
+        assert got.metadata["offset"] == want.metadata["offset"]
+        assert torch.equal(got.audio_data.cpu(), want.audio_data)
 
 
 def test_parity_pitch_shift_on_card_matches_cpu(cuda):

@@ -27,7 +27,7 @@ def _ir(seed, batch, n):
 
 
 def _pair(x):
-    return AudioSignal(x.copy(), SR), JSignal(x.copy(), SR)
+    return AudioSignal(x.copy(), SR, device="cpu"), JSignal(x.copy(), SR)
 
 
 def _close(port, jax_sig, atol):
@@ -44,7 +44,7 @@ def test_convolve_matches_jax(T, K):
     x = _audio(1, (2, 1, T))
     ir = _ir(2, 2, K)
     p, j = _pair(x)
-    _close(p.convolve(AudioSignal(ir, SR)), j.convolve(JSignal(ir, SR)), 1e-5)
+    _close(p.convolve(AudioSignal(ir, SR, device="cpu")), j.convolve(JSignal(ir, SR)), 1e-5)
 
 
 @pytest.mark.parametrize("drr", [0.0, 12.0, np.array([5.0, 25.0], np.float32)])
@@ -53,7 +53,7 @@ def test_apply_ir_with_drr_and_eq_matches_jax(drr):
     ir = _ir(4, 2, SR)
     eq = -np.random.RandomState(5).rand(2, 6).astype(np.float32)
     p, j = _pair(x)
-    got = p.apply_ir(AudioSignal(ir, SR), drr, torch.from_numpy(eq))
+    got = p.apply_ir(AudioSignal(ir, SR, device="cpu"), drr, torch.from_numpy(eq))
     want = j.apply_ir(JSignal(ir, SR), drr, jnp.asarray(eq))
     _close(got, want, 1e-5)
 
@@ -70,7 +70,7 @@ def test_mix_normalize_volume_match_jax():
     x, n = _audio(7, (2, 1, SR)), _audio(8, (2, 1, SR - 500), 0.3)
     eq = -np.random.RandomState(9).rand(2, 3).astype(np.float32)
     p, j = _pair(x)
-    p.mix(AudioSignal(n, SR), np.array([10.0, 20.0], np.float32), torch.from_numpy(eq))
+    p.mix(AudioSignal(n, SR, device="cpu"), np.array([10.0, 20.0], np.float32), torch.from_numpy(eq))
     j.mix(JSignal(n, SR), jnp.asarray([10.0, 20.0]), jnp.asarray(eq))
     _close(p, j, 1e-5)
     _close(p.normalize(-20.0), j.normalize(-20.0), 1e-5)
@@ -98,11 +98,11 @@ def test_signal_construction_and_shape_ops(tmp_path):
     x = _audio(12, (1, 2, 3000))
     path = tmp_path / "a.wav"
     write_wav(path, x[0], SR, subtype="FLOAT")
-    sig = AudioSignal(path, offset=0.01, duration=0.02)
+    sig = AudioSignal(path, offset=0.01, duration=0.02, device="cpu")
     assert sig.shape == (1, 2, 882) and sig.path_to_file == path
     assert np.array_equal(sig.audio_data.numpy(), x[..., 441:1323])
-    assert AudioSignal(list(x[0, 0]), SR).shape == (1, 1, 3000)
-    assert AudioSignal.zeros(0.5, SR, num_channels=2, batch_size=3).shape == (3, 2, SR // 2)
+    assert AudioSignal(list(x[0, 0]), SR, device="cpu").shape == (1, 1, 3000)
+    assert AudioSignal.zeros(0.5, SR, num_channels=2, batch_size=3, device="cpu").shape == (3, 2, SR // 2)
     assert sig.clone().to_mono().shape == (1, 1, 882)
     assert sig.clone().zero_pad_to(1000, mode="before").signal_length == 1000
     assert sig.clone().truncate_samples(10).signal_length == 10
@@ -116,17 +116,18 @@ def test_signal_construction_and_shape_ops(tmp_path):
 
 
 def test_batch_pads_or_refuses_mismatched_signals():
-    a, b = AudioSignal(_audio(13, (1, 1, 100)), SR), AudioSignal(_audio(14, (1, 1, 80)), SR)
+    a = AudioSignal(_audio(13, (1, 1, 100)), SR, device="cpu")
+    b = AudioSignal(_audio(14, (1, 1, 80)), SR, device="cpu")
     with pytest.raises(RuntimeError, match="lengths"):
         AudioSignal.batch([a.clone(), b.clone()])
     assert AudioSignal.batch([a.clone(), b.clone()], pad_signals=True).shape == (2, 1, 100)
     assert AudioSignal.batch([a.clone(), b.clone()], truncate_signals=True).shape == (2, 1, 80)
     with pytest.raises(RuntimeError, match="sample rates"):
-        AudioSignal.batch([a, AudioSignal(_audio(15, (1, 1, 100)), 16000)])
+        AudioSignal.batch([a, AudioSignal(_audio(15, (1, 1, 100)), 16000, device="cpu")])
 
 
 def test_indexing_and_where():
-    sig = AudioSignal(_audio(16, (3, 1, 500)), SR)
+    sig = AudioSignal(_audio(16, (3, 1, 500)), SR, device="cpu")
     sig.loudness()
     picked = sig[np.array([True, False, True])]
     assert picked.batch_size == 2 and picked._loudness.shape == (2,)

@@ -151,7 +151,7 @@ def test_regression_wavs(name, audio_dir):
     sources = {"BackgroundNoise": "nz.csv", "RoomImpulseResponse": "ir.csv"}
     cls = getattr(pt, name)
     transform = cls(sources=[str(audio_dir / sources[name])]) if name in sources else cls()
-    signal = AudioSignal(speech_like(3, 1.0)[None, None], SR)
+    signal = AudioSignal(speech_like(3, 1.0)[None, None], SR, device="cpu")
     kwargs = transform.instantiate(0, signal)
     output = transform(signal.clone(), **kwargs)
     golden, sr = read_wav(REGRESSION_DIR / f"{name}.wav")
@@ -194,7 +194,7 @@ def test_loader_stages_the_same_batch(batches):
     assert isinstance(eq, torch.Tensor)
     assert np.array_equal(eq.numpy(), pbatch["transform_args"]["Compose"]["2.Equalizer"]["eq"])
     assert isinstance(got["transform_args"]["Compose"]["2.Equalizer"]["mask"], np.ndarray)
-    sync = list(DataLoader(pds, batch_size=1, num_workers=0))
+    sync = list(DataLoader(pds, batch_size=1, num_workers=0, device="cpu"))
     assert [int(b["idx"][0]) for b in sync] == [0, 1]
 
 
@@ -204,7 +204,7 @@ def _producers():
 
 def test_loader_stops_its_thread_after_an_early_break(batches):
     _, _, pds, _ = batches
-    for _ in DataLoader(pds, batch_size=1, num_workers=2, prefetch_batches=1):
+    for _ in DataLoader(pds, batch_size=1, num_workers=2, prefetch_batches=1, device="cpu"):
         break
     deadline = time.monotonic() + 30
     while _producers() and time.monotonic() < deadline:
@@ -221,7 +221,7 @@ def test_loader_raises_worker_errors():
             raise OSError(f"cannot read item {idx}")
 
     with pytest.raises(OSError, match="cannot read item"):
-        list(DataLoader(Broken(), batch_size=2, num_workers=2))
+        list(DataLoader(Broken(), batch_size=2, num_workers=2, device="cpu"))
     assert not _producers()
 
 
@@ -233,7 +233,7 @@ def test_salient_excerpt_retries_like_jax(audio_dir):
     want = JAudioSignal.salient_excerpt(path, loudness_cutoff=0.0, num_tries=4,
                                         state=3, duration=0.5)
     got = AudioSignal.salient_excerpt(path, loudness_cutoff=0.0, num_tries=4,
-                                      state=3, duration=0.5)
+                                      state=3, duration=0.5, device="cpu")
     assert got.metadata["offset"] == want.metadata["offset"]
     assert np.array_equal(got.audio_data.numpy(), np.asarray(want.audio_data))
     assert abs(float(got._loudness) - float(np.asarray(want._loudness))) < 5e-3

@@ -93,8 +93,8 @@ def test_fused_synthesis_reaches_the_kernel_wrapper(monkeypatch):
     PF.istft(spec, 512, 128, match_stride=True, original_length=9000, method="matmul_bf16_fused")
     nt = spec.shape[-1]
     # match_stride's zero frames are read as zeros, not padded into a copy
-    # (2 x 257 = 514 rows padded to 544; 4 column blocks of 128)
-    assert calls == [((2, nt, 257), False, (544, 512), 128, (512 + 128 * (nt + 3),), 2)]
+    # (2 x 257 = 514 rows padded to 528; 4 column blocks of 128)
+    assert calls == [((2, nt, 257), False, (528, 512), 128, (512 + 128 * (nt + 3),), 2)]
     # a time-major spectrum (as the phase vocoder writes it) reaches E in place
     calls.clear()
     tm = spec.transpose(-1, -2).contiguous().transpose(-1, -2)
@@ -238,7 +238,8 @@ def _calls(device):
     z = torch.zeros(2, 5, device=device)
     c = torch.zeros(2, device=device)
     spec = torch.zeros(1, 3, 33, dtype=torch.complex64, device=device)
-    w = torch.zeros(96, 256, dtype=torch.bfloat16, device=device)  # 33 bins, n_fft 64, hop 16
+    # 33 bins, n_fft 64, hop 16: 66 rows padded to 80, 4 column blocks of 128
+    w = torch.zeros(80, 512, dtype=torch.bfloat16, device=device)
     env = torch.ones(96, device=device)
     msgs = []
     for call in (lambda: HK.rotation_cumprod(z, z, c, c),
