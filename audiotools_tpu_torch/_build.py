@@ -31,6 +31,15 @@ SOURCES = ("fir_causal_batch", "phase_vocoder", "rotation_cumprod", "istft_synth
 # as in the plain PyTorch versions (no FMA contraction); no source uses
 # fast math.
 EXTRA_FLAGS = {"phase_vocoder": ["--fmad=false"], "rotation_cumprod": ["--fmad=false"]}
+# Compile-time geometry of kernels B and D, passed to nvcc as -D flags. The
+# launch plans (ops/hopper_kernels.py::pv_plan, rotation_plan) read it here,
+# so that a kernel and its plan take it from one place: B's rows a block
+# and prefetch depth in steps; D's rows a block, steps a tile and tiles in
+# its ring.
+DEFINES = {
+    "phase_vocoder": {"PV_THREADS": 512, "PV_DEPTH": 16},
+    "rotation_cumprod": {"ROT_ROWS": 128, "ROT_STEPS": 32, "ROT_STAGES": 3},
+}
 
 BUILD_SECONDS = {}  # name -> seconds spent in nvcc by this process
 _libs = {}
@@ -51,11 +60,17 @@ def _nvcc() -> str:
     )
 
 
+def flags(name: str) -> list:
+    """nvcc's flags for ``csrc/<name>.cu``: the common ones, its own, and its
+    geometry as -D flags."""
+    geometry = [f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items()]
+    return FLAGS + EXTRA_FLAGS.get(name, []) + geometry
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to for the current source and flags."""
-    flags = FLAGS + EXTRA_FLAGS.get(name, [])
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -67,7 +82,7 @@ def build_log(name: str) -> str:
 
 
 def _compile(name: str, out: Path):
-    cmd = [_nvcc(), *FLAGS, *EXTRA_FLAGS.get(name, [])]
+    cmd = [_nvcc(), *flags(name)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)

@@ -12,6 +12,7 @@ so a run can show that its main path went through the kernels.
 """
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,10 +29,14 @@ __all__ = [
     "reset_launch_counts",
     "fir_causal_batch",
     "fir_causal_batch_plain",
+    "PvPlan",
+    "pv_plan",
     "phase_vocoder_fused",
     "phase_vocoder_fused_plain",
     "fir_causal",
     "fir_causal_plain",
+    "RotationPlan",
+    "rotation_plan",
     "rotation_cumprod",
     "rotation_cumprod_plain",
     "synthesis_weights",
@@ -54,8 +59,9 @@ _SIGNATURES = {
     # (csrc file, argtypes)
     "fir_causal_batch": ("fir_causal_batch", [_P, _P, _P, _I, _I, _I, _P]),
     "fir_causal": ("fir_causal_batch", [_P, _P, _P, _I, _I, _I, _P]),
-    "phase_vocoder_fused": ("phase_vocoder", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "rotation_cumprod": ("rotation_cumprod", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "phase_vocoder_fused": ("phase_vocoder",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "rotation_cumprod": ("rotation_cumprod", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "istft_synthesis_fused": ("istft_synthesis",
                               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
@@ -215,6 +221,31 @@ def phase_vocoder_fused_plain(stft_data, i0, i1, frac, with_phasor: bool = False
     return (out, back(p_r, p_i)) if with_phasor else out
 
 
+class PvPlan(NamedTuple):
+    """Kernel B's launch: ``threads`` rows a block (one thread each), frames
+    fetched ``depth`` steps ahead of their use, a block barrier every
+    ``sync_every`` steps (0: none), ``smem`` bytes of frame ring a block,
+    ``blocks`` blocks."""
+    threads: int
+    depth: int
+    sync_every: int
+    smem: int
+    blocks: int
+
+
+def pv_plan(rows: int, with_phasor: bool = False) -> PvPlan:
+    """Kernel B's launch for ``rows`` rows, with the block and depth its
+    build takes (``_build.DEFINES``): each thread's ring holds ``depth + 1``
+    steps' two frames (complex64). With the phasor track, a block barrier
+    every 4 steps keeps the warps of a block writing neighbouring bins
+    together (measured faster with the track's second output, slower
+    without it: PERF.md)."""
+    geometry = _build.DEFINES["phase_vocoder"]
+    threads, depth = geometry["PV_THREADS"], geometry["PV_DEPTH"]
+    smem = (depth + 1) * 2 * threads * 8
+    return PvPlan(threads, depth, 4 if with_phasor else 0, smem, -(-rows // threads))
+
+
 @functools.lru_cache(maxsize=16)
 def _step_tables(i0b: bytes, i1b: bytes, fracb: bytes, device):
     return (
@@ -244,10 +275,11 @@ def phase_vocoder_fused(stft_data, i0, i1, frac, with_phasor: bool = False):
     ti0, ti1, tfrac = _step_tables(i0.tobytes(), i1.tobytes(), frac.tobytes(), z.device)
     out = torch.empty((items, n_steps, F_bins), dtype=torch.complex64, device=z.device)
     track = torch.empty_like(out) if with_phasor else None
+    plan = pv_plan(items * F_bins, with_phasor)
     _launch(
         "phase_vocoder_fused", (z, ti0, ti1, tfrac, out), z.data_ptr(), ti0.data_ptr(), ti1.data_ptr(),
         tfrac.data_ptr(), out.data_ptr(), track.data_ptr() if with_phasor else None,
-        items, F_bins, T, n_steps,
+        items, F_bins, T, n_steps, plan.sync_every, plan.smem, plan.blocks,
     )
 
     def back(t):
@@ -330,6 +362,33 @@ def rotation_cumprod_plain(ur, ui, cr, ci):
     return pr, pi
 
 
+class RotationPlan(NamedTuple):
+    """Kernel D's launch: ``rows_per_block`` rows a block (one thread each),
+    tiles of ``steps`` steps in a ring of ``stages``, copied 16 bytes at a
+    time when ``wide`` (else 4), ``smem`` bytes of ring a block, ``blocks``
+    blocks."""
+    rows_per_block: int
+    steps: int
+    stages: int
+    wide: bool
+    smem: int
+    blocks: int
+
+
+def rotation_plan(rows: int, n: int, aligned: bool = True) -> RotationPlan:
+    """Kernel D's launch for ``rows`` rows of ``n`` steps, with the block,
+    tile and ring its build takes (``_build.DEFINES``): 16-byte copies when
+    every row starts on 16 bytes (``n % 4 == 0`` and ``aligned`` planes),
+    into rows of ``steps + 4`` words; 4-byte copies otherwise, into a
+    transposed tile of ``rows_per_block + 1`` words a step."""
+    geometry = _build.DEFINES["rotation_cumprod"]
+    per_block, steps, stages = (geometry[k] for k in ("ROT_ROWS", "ROT_STEPS", "ROT_STAGES"))
+    wide = aligned and n % 4 == 0
+    words = per_block * (steps + 4) if wide else steps * (per_block + 1)
+    smem = stages * 2 * words * 4
+    return RotationPlan(per_block, steps, stages, wide, smem, -(-rows // per_block))
+
+
 def rotation_cumprod(ur, ui, cr, ci):
     """Exclusive cumulative complex product over the last axis of the
     real-pair planes ``(ur, ui)`` ``(..., n)``, seeded with ``(cr, ci)``
@@ -345,8 +404,10 @@ def rotation_cumprod(ur, ui, cr, ci):
     if n < 1 or rows < 1:
         raise ValueError(f"rotation_cumprod needs nonempty planes, got {tuple(ur.shape)}")
     pr, pi = torch.empty_like(ur), torch.empty_like(ui)
+    plan = rotation_plan(rows, n, all(t.data_ptr() % 16 == 0 for t in (ur, ui, pr, pi)))
     _launch("rotation_cumprod", (ur, ui, cr, ci, pr, pi), ur.data_ptr(), ui.data_ptr(),
-            cr.data_ptr(), ci.data_ptr(), pr.data_ptr(), pi.data_ptr(), rows, n)
+            cr.data_ptr(), ci.data_ptr(), pr.data_ptr(), pi.data_ptr(), rows, n,
+            int(plan.wide), plan.smem, plan.blocks)
     return pr, pi
 
 

@@ -11,7 +11,10 @@ runs, on card 0:
 2. kernel A (per-item causal FIR) against its plain PyTorch version at the
    equalizers' shapes (64 rows of 5 s or 1 s at 44.1 kHz; 641 or 231 taps);
 3. kernel B (fused phase vocoder) against its plain version at the pitch
-   shift's shape (64 x 1 x 1025 bins, 384 frames -> 432 steps);
+   shift's shape (64 x 1 x 1025 bins, 384 frames -> 432 steps), read in
+   place from a time-major spectrum as the chains give it, in both
+   variants: with the phasor track and without it (the chains' launch,
+   which the kernel table reports);
 4. kernel C (causal FIR, one shared kernel) at the FIR meter's shapes
    (64 or 128 rows of 5 s, 1023 or 4095 taps) and at its 8192-tap limit;
    kernel D (exclusive complex cumprod) at 65,600 rows x 432 steps; kernel
@@ -32,13 +35,14 @@ runs, on card 0:
    first 4 clips, against stated tolerances.
 
 Every kernel is also held against its plain version at ragged shapes of
-its tiling, and timed beside its bound (the larger of its operations over
-the card's peak rate for their type and its bytes, each input read once and
-each output written once, over the memory rate) and beside the one PyTorch
-call that computes the same function, where there is one (the port never
-calls it). Any failed check exits non-zero. The last lines are the kernel table, the
-card's name and power limit, and ``{"ok": true, "device": ...}``. Without a
-CUDA device the script exits non-zero and prints no result.
+its tiling (B and D bit for bit), and timed beside its bound (the larger
+of its operations over the card's peak rate for their type and its bytes,
+each input read once and each output written once, over the memory rate)
+and beside the one PyTorch call that computes the same function, where
+there is one (the port never calls it). Any failed check exits non-zero.
+The last lines are the kernel table, the card's name and power limit, and
+``{"ok": true, "device": ...}``. Without a CUDA device the script exits
+non-zero and prints no result.
 """
 import contextlib
 import csv
@@ -277,36 +281,67 @@ def phase_kernel_a(dev):
     return results
 
 
-def phase_kernel_b(dev):
-    from audiotools_tpu_torch.ops import hopper_kernels as HK
+def pv_main_case(dev):
+    """Kernel B's input at the pitch shift's shape, (64, 1, 1025, 384) at +2
+    semitones -> 432 steps: a spectrum that is a transposed view of a
+    time-major tensor (as ``ops.fft.stft`` returns it) and its step tables."""
     from audiotools_tpu_torch.ops import stretch as PS
 
     rng = np.random.RandomState(2)
-    shape = (BATCH, 1, 1025, 384)
+    tm = (BATCH, 1, 384, 1025)
     z = torch.from_numpy(
-        (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
-    ).to(dev)
-    i0, i1, frac = PS._pv_indices(shape[-1], 2.0 ** (-2.0 / 12.0))
-    abs_err, rel_err, ms, plain_ms = compare_kernel(
-        "phase_vocoder_fused",
-        lambda: HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=True),
-        lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=True), 10, 2,
-    )
-    gbytes = 8.0 * np.prod(shape[:-1]) * (2 * len(i0) + 2 * len(i0)) / 1e9
-    # each input frame read once, output and phasor track written once; ~31
-    # fp32 operations a bin and step (two magnitudes, the interpolated
-    # magnitude, the rotation, its normalisation, the phasor update)
-    rows = np.prod(shape[:-1])
-    yard = yardsticks(ms, 31.0 * rows * len(i0), FP32_FLOPS,
-                      8.0 * rows * (shape[-1] + 2 * len(i0)) + 12.0 * len(i0))
-    print(f"[kernel B] {shape} -> {len(i0)} steps (with phasor): max_abs_err {abs_err:.3e} "
-          f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
-          f"(~{gbytes / ms:.1f} TB/s of frame traffic) | plain {plain_ms:.4f} ms | bound "
-          f"{yard['bound_ms']:.4f} ms ({yard['bound_by']}, {yard['share_of_bound']:.1%})")
+        (rng.randn(*tm) + 1j * rng.randn(*tm)).astype(np.complex64)
+    ).to(dev).transpose(-1, -2)
+    return (z, *PS._pv_indices(tm[2], 2.0 ** (-2.0 / 12.0)))
+
+
+def rotation_main_case(dev):
+    """Kernel D's input at the pitch shift's rows x steps, 65,600 x 432:
+    unit rotations and seeds as real planes ``(ur, ui, cr, ci)``."""
+    rng = np.random.RandomState(4)
+    rows, n = BATCH * 1025, 432
+    ang = rng.uniform(-np.pi, np.pi, (rows, n))
+    seed = rng.uniform(-np.pi, np.pi, rows)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed)))
+
+
+def phase_kernel_b(dev):
+    """Kernel B at the pitch shift's shape, as the chains launch it: on a
+    time-major spectrum read in place, in both variants: without the phasor
+    track (the path's) and with it (the forward of the differentiable
+    vocoder). Each is held bit for bit against its plain version and timed
+    beside its own bound."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    z, i0, i1, frac = pv_main_case(dev)
+    shape = tuple(z.shape)
+    rows, n = int(np.prod(shape[:-1])), len(i0)
+    results = {}
+    for label, with_phasor in (("with_phasor", True), ("path", False)):
+        abs_err, _, ms, plain_ms = compare_kernel(
+            "phase_vocoder_fused",
+            lambda: HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=with_phasor),
+            lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=with_phasor), 10, 2,
+        )
+        # each input frame read once, the output (and the track) written once,
+        # the step tables read once; ~31 fp32 operations a bin and step (two
+        # magnitudes, the interpolated magnitude, the rotation, its
+        # normalisation, the phasor update)
+        nbytes = 8.0 * rows * (shape[-1] + n * (1 + with_phasor)) + 12.0 * n
+        yard = yardsticks(ms, 31.0 * rows * n, FP32_FLOPS, nbytes)
+        plan = HK.pv_plan(rows, with_phasor)
+        sync = f"a barrier every {plan.sync_every} steps" if plan.sync_every else "no barrier"
+        print(f"[kernel B] {shape} -> {n} steps, {label} (plan {plan.threads} threads, "
+              f"frames {plan.depth} steps ahead, {sync}): max_abs_err "
+              f"{abs_err:.3e} (must be 0) | kernel {ms:.4f} ms ({nbytes / ms / 1e9:.2f} TB/s) | "
+              f"plain {plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB, {yard['share_of_bound']:.1%})")
+        expect(abs_err == 0.0, f"kernel B ({label}) differs from its plain version")
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
     print("[kernel B] library: none; no PyTorch call computes the phasor vocoder's "
           "step recurrence")
-    expect(rel_err < KERNEL_RTOL, "kernel B disagrees with its plain version")
-    return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
+    return results
 
 
 def phase_kernel_c(dev):
@@ -351,13 +386,9 @@ def phase_kernel_c(dev):
 def phase_kernel_d(dev):
     from audiotools_tpu_torch.ops import hopper_kernels as HK
 
-    rng = np.random.RandomState(4)
-    rows, n = BATCH * 1025, 432  # the pitch shift's rows x steps
-    ang = rng.uniform(-np.pi, np.pi, (rows, n))
-    seed = rng.uniform(-np.pi, np.pi, rows)
-    ur, ui, cr, ci = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-        np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed)))
-    abs_err, rel_err, ms, plain_ms = compare_kernel(
+    ur, ui, cr, ci = rotation_main_case(dev)
+    rows, n = ur.shape
+    abs_err, _, ms, plain_ms = compare_kernel(
         "rotation_cumprod", lambda: HK.rotation_cumprod(ur, ui, cr, ci),
         lambda: HK.rotation_cumprod_plain(ur, ui, cr, ci), 10, 2,
     )
@@ -368,11 +399,13 @@ def phase_kernel_d(dev):
     yard = yardsticks(ms, 6.0 * rows * n, FP32_FLOPS, 4.0 * rows * (4 * n + 2),
                       "torch.cumprod (complex64, inclusive)", lambda: torch.cumprod(u, dim=-1), 10)
     del u
-    print(f"[kernel D] ({rows}, {n}): max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
-          f"(tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms ({gbytes / ms:.2f} TB/s) "
-          f"| plain {plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
+    plan = HK.rotation_plan(rows, n)
+    print(f"[kernel D] ({rows}, {n}) (plan {plan.rows_per_block} rows a block, {plan.stages} "
+          f"stages of {plan.steps} steps, {16 if plan.wide else 4}-byte copies): max_abs_err "
+          f"{abs_err:.3e} (must be 0) | kernel {ms:.4f} ms ({gbytes / ms:.2f} TB/s) | plain "
+          f"{plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
           f"{yard['share_of_bound']:.1%}) | {yard['library']} {yard['library_ms']:.4f} ms")
-    expect(rel_err < KERNEL_RTOL, "kernel D disagrees with its plain version")
+    expect(abs_err == 0.0, "kernel D differs from its plain version")
     return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard), (ur, ui, cr, ci)
 
 
@@ -483,8 +516,9 @@ def phase_kernel_e(dev):
 
 
 def phase_ragged(dev):
-    """Kernels A, C and E against their plain versions at the shapes of
-    ``ops.ragged_shapes``, which do not fill their tiles."""
+    """Every kernel against its plain version at the shapes of
+    ``ops.ragged_shapes``, which do not fill their tiles: A, C and E within
+    the relative tolerance, B (both variants) and D bit for bit."""
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
@@ -513,11 +547,34 @@ def phase_ragged(dev):
             want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
             err = float((got - want).abs().max() / want.abs().max())
             worst["E"] = max(worst.get("E", 0.0), err)
+    exact = {}  # B and D: max abs error, which must be 0
+    for case, (shape, rate) in enumerate(RAGGED.PV):
+        z, i0, i1, frac = RAGGED.pv_case(shape, rate, seed=case)
+        z = torch.from_numpy(z).to(dev)
+        for with_phasor in (False, True):
+            got = HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=with_phasor)
+            want = HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=with_phasor)
+            got, want = (got, want) if with_phasor else ((got,), (want,))
+            key = "B with phasor" if with_phasor else "B"
+            exact[key] = max([exact.get(key, 0.0)] + [float((g - w).abs().max())
+                                                      for g, w in zip(got, want)])
+    for shape in RAGGED.ROTATION:
+        ang = rng.uniform(-np.pi, np.pi, shape)
+        seed = rng.uniform(-np.pi, np.pi, shape[:-1])
+        planes = [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (
+            np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed))]
+        got, want = HK.rotation_cumprod(*planes), HK.rotation_cumprod_plain(*planes)
+        exact["D"] = max([exact.get("D", 0.0)] + [float((g - w).abs().max())
+                                                  for g, w in zip(got, want)])
     torch.cuda.synchronize()
     print("[ragged] worst rel. err against the plain versions: " + ", ".join(
-        f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {KERNEL_RTOL:g})")
+        f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {KERNEL_RTOL:g}); max abs err: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in exact.items())
+        + f" (must be 0; {len(RAGGED.PV)} B and {len(RAGGED.ROTATION)} D shapes)")
     for k, v in worst.items():
         expect(v < KERNEL_RTOL, f"kernel {k} disagrees with its plain version at a ragged shape")
+    for k, v in exact.items():
+        expect(v == 0.0, f"kernel {k} differs from its plain version at a ragged shape")
 
 
 def make_dataset(root, n_examples):
@@ -698,7 +755,7 @@ def main():
 
     kernels = [
         row("fir_causal_batch", "fir_causal_batch.cu", 182, "main", a, "equalizer"),
-        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main", b),
+        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main", b, "path"),
         row("fir_causal", "fir_causal_batch.cu", 100, "parity", c, "meter"),
         # D has no caller in the library: its own path is its entry point
         row("rotation_cumprod", "rotation_cumprod.cu", 417, "rotation", d),

@@ -123,6 +123,36 @@ def test_pv_kernel_main_path_shape(cuda):
     assert _rel_err(got, HK.phase_vocoder_fused_plain(z, i0, i1, frac)) < KERNEL_RTOL
 
 
+@pytest.mark.parametrize("with_phasor", [False, True])
+@pytest.mark.parametrize("case", range(len(RAGGED.PV)))
+def test_pv_kernel_ragged_shapes_bit_equal(cuda, case, with_phasor):
+    """Bins, rows and steps that do not fill the block or the prefetch
+    ring, rates below and above 1, silent bins and zero frames, and a step
+    table that is not monotone: the same bits as the plain version."""
+    shape, rate = RAGGED.PV[case]
+    z, i0, i1, frac = RAGGED.pv_case(shape, rate, seed=case)
+    z = torch.from_numpy(z).to(cuda)
+    got = HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=with_phasor)
+    want = HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=with_phasor)
+    for g, w in zip(got, want) if with_phasor else [(got, want)]:
+        assert g.shape == w.shape == shape[:-1] + (len(i0),)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("with_phasor", [False, True])
+def test_pv_kernel_main_path_shape_bit_equal(cuda, with_phasor):
+    """The chains' launch (time-major spectrum, read in place) in both
+    variants, at the pitch shift's shape: the same bits as the plain version."""
+    rng = np.random.RandomState(1)
+    z = torch.from_numpy((rng.randn(64, 1, 384, 1025) + 1j * rng.randn(64, 1, 384, 1025))
+                         .astype(np.complex64)).to(cuda).transpose(-1, -2)
+    i0, i1, frac = PS._pv_indices(384, 2 ** (-2 / 12))
+    got = HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=with_phasor)
+    want = HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=with_phasor)
+    for g, w in zip(got, want) if with_phasor else [(got, want)]:
+        assert torch.equal(g, w)
+
+
 def test_pv_kernel_reads_a_transposed_spectrum_in_place(cuda):
     """``ops.fft.stft`` returns a transposed view of a time-major tensor;
     the kernel must read it as is and agree with a contiguous copy."""
@@ -199,6 +229,43 @@ def test_rotation_kernel_matches_plain(cuda, shape):
     for g, w in zip(got, want):
         assert g.shape == w.shape == shape
         assert _rel_err(g, w) < KERNEL_RTOL
+
+
+def _rotation_planes(rng, shape, cuda):
+    ang = rng.uniform(-np.pi, np.pi, shape)
+    seed = rng.uniform(-np.pi, np.pi, shape[:-1])
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+            for a in (np.cos(ang), np.sin(ang), np.cos(seed), np.sin(seed))]
+
+
+@pytest.mark.parametrize("shape", RAGGED.ROTATION + [(64 * 1025, 432)])
+def test_rotation_kernel_bit_equal(cuda, shape):
+    """Rows not a multiple of the block, one row, one step, steps not a
+    multiple of the tile, and the main path's 65,600 x 432: the same bits as
+    the plain version."""
+    planes = _rotation_planes(np.random.RandomState(shape[-1]), shape, cuda)
+    for g, w in zip(HK.rotation_cumprod(*planes), HK.rotation_cumprod_plain(*planes)):
+        assert g.shape == w.shape == shape
+        assert torch.equal(g, w)
+
+
+def test_rotation_kernel_misaligned_planes_take_the_4_byte_route(cuda):
+    """Planes whose rows do not start on 16 bytes (a view 4 bytes into its
+    buffer) with n % 4 == 0 go through the 4-byte copies: the same bits."""
+    rng = np.random.RandomState(11)
+    rows, n = 300, 432
+    planes = _rotation_planes(rng, (rows, n), cuda)
+    shifted = []
+    for p in planes[:2]:
+        buf = torch.empty(rows * n + 1, device=cuda)
+        view = buf[1:].view(rows, n)
+        view.copy_(p)
+        shifted.append(view)
+    assert shifted[0].data_ptr() % 16 != 0
+    assert not HK.rotation_plan(rows, n, aligned=False).wide
+    got = HK.rotation_cumprod(*shifted, *planes[2:])
+    for g, w in zip(got, HK.rotation_cumprod_plain(*planes)):
+        assert torch.equal(g, w)
 
 
 # -- E: fused bf16 iSTFT synthesis ------------------------------------------

@@ -15,6 +15,7 @@ from audiotools_tpu.ops import stretch as JS
 from audiotools_tpu_torch import _build
 from audiotools_tpu_torch.ops import filters as PFL
 from audiotools_tpu_torch.ops import hopper_kernels as HK
+from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
 from audiotools_tpu_torch.ops import stretch as PS
 
 
@@ -92,6 +93,24 @@ def test_phasor_track_matches_jax():
     assert _rel(track.imag.numpy(), wpi) < 1e-5
     # |P| = 1, and out = mag * P
     assert np.abs(np.abs(track.numpy()) - 1).max() < 1e-5
+
+
+@pytest.mark.parametrize("case", [c for c, (shape, _) in enumerate(RAGGED.PV)
+                                  if np.prod(shape[:-1]) <= 2050])
+def test_phase_vocoder_matches_jax_on_ragged_cases(case):
+    """The kernel's ragged cases (``ops.ragged_shapes.PV``: a single bin,
+    steps fewer than the prefetch depth, rates 0.77 to 2, silent bins and
+    zero frames, a step table that is not monotone) through the plain
+    version and the Pallas kernel interpreted, with the phasor track."""
+    shape, rate = RAGGED.PV[case]
+    z, i0, i1, frac = RAGGED.pv_case(shape, rate, seed=case)
+    want, (wpr, wpi) = JPK.phase_vocoder_fused(jnp.asarray(z), i0, i1, frac,
+                                               interpret=True, with_phasor=True)
+    got, track = HK.phase_vocoder_fused(torch.from_numpy(z), i0, i1, frac, with_phasor=True)
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) < 1e-5
+    assert np.abs(track.real.numpy() - np.asarray(wpr)).max() < 1e-5
+    assert np.abs(track.imag.numpy() - np.asarray(wpi)).max() < 1e-5
 
 
 def test_phase_vocoder_checks_its_tables():
