@@ -1,5 +1,6 @@
-"""audiotools_tpu_torch: the augmentation path of ``audiotools_tpu`` in
-PyTorch, for one NVIDIA Hopper card (H100).
+"""audiotools_tpu_torch: the augmentation path and the codec training path
+(``models``, ``metrics``) of ``audiotools_tpu`` in PyTorch, for one NVIDIA
+Hopper card (H100).
 
 The JAX package beside it is the reference. This package imports neither
 it nor JAX. Its five kernels (the causal FIRs, the fused phasor phase

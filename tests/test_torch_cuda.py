@@ -345,3 +345,73 @@ def test_parity_pitch_shift_on_card_matches_cpu(cuda):
     # bf16 rounding may fall on the other side on the two devices (one
     # bf16 ulp, 2**-8, of a value), as chip_smoke.py's CHAIN_TOL states
     assert (got.cpu() - PS.pitch_shift(x, 2.0, 44100, **kw)).abs().max() < 4e-3
+
+
+# -- R4, R5: gradients ---------------------------------------------------------
+
+# the fused vocoder's gradient against the phasor formulation's, relative to
+# the largest gradient (the JAX package's pin, docs/perf.md)
+PV_GRAD_RTOL = 4.4e-5
+
+
+@pytest.mark.parametrize("case", [0, 3, 5, 8])
+def test_fused_vocoder_gradient_matches_phasor_on_card(cuda, case):
+    """R4: ``phase_vocoder(formulation="phasor_fused")`` on the card runs
+    kernel B with its phasor track once under the forward, and its custom
+    backward gives the autograd gradient of the ``phasor`` formulation, at
+    ragged shapes with silent bins and transient zero frames."""
+    shape, rate = RAGGED.PV[case]
+    z, _, _, _ = RAGGED.pv_case(shape, rate, seed=case)
+    grads = {}
+    for formulation in ("phasor_fused", "phasor"):
+        zt = torch.from_numpy(z).to(cuda).requires_grad_(True)
+        before = HK.LAUNCHES["phase_vocoder_fused"]
+        out = PS.phase_vocoder(zt, rate, 512, 2048, formulation=formulation)
+        launched = HK.LAUNCHES["phase_vocoder_fused"] - before
+        assert launched == (formulation == "phasor_fused")
+        w = torch.from_numpy(np.random.RandomState(case).randn(*out.shape).astype(np.float32))
+        ((out.abs() ** 2).sum() + (out.real * w.to(cuda)).sum()).backward()
+        grads[formulation] = zt.grad.cpu()
+    scale = float(grads["phasor"].abs().max())
+    assert torch.isfinite(grads["phasor_fused"]).all()
+    assert float((grads["phasor_fused"] - grads["phasor"]).abs().max()) / scale < PV_GRAD_RTOL
+
+
+def _grad_inputs(cuda):
+    """One call of each kernel wrapper without a backward (A, C, D, E) at a
+    small shape, with the argument that requires grad made by ``g``."""
+    from audiotools_tpu_torch.ops import fft as PF
+
+    w = PF._on_device(PF._synthesis_design, ("hann", 64, 16), cuda)[0]
+    env = PF._on_device(PF._inverse_envelope, ("hann", 64, 16, 3), cuda)[0]
+    return {
+        "fir_causal_batch": lambda g: HK.fir_causal_batch(
+            torch.randn(2, 640, device=cuda, requires_grad=g), torch.randn(2, 5, device=cuda)),
+        "fir_causal": lambda g: HK.fir_causal(
+            torch.randn(2, 640, device=cuda), torch.randn(5, device=cuda, requires_grad=g)),
+        "rotation_cumprod": lambda g: HK.rotation_cumprod(
+            torch.ones(3, 8, device=cuda, requires_grad=g), torch.zeros(3, 8, device=cuda),
+            torch.ones(3, device=cuda), torch.zeros(3, device=cuda)),
+        "istft_synthesis_fused": lambda g: HK.istft_synthesis_fused(
+            torch.randn(1, 3, 33, dtype=torch.complex64, device=cuda, requires_grad=g), w, 16,
+            env),
+    }
+
+
+@pytest.mark.parametrize("name", ["fir_causal_batch", "fir_causal", "rotation_cumprod",
+                                  "istft_synthesis_fused"])
+def test_kernels_without_backward_raise_on_grad(cuda, name):
+    """R5: kernels A, C, D and E have no backward. Given an input that
+    requires grad while grad mode is on, the wrapper raises instead of
+    returning a result cut from the graph, and launches nothing; under
+    ``no_grad`` the same call launches."""
+    call = _grad_inputs(cuda)[name]
+    before = HK.LAUNCHES[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    assert HK.LAUNCHES[name] == before
+    with torch.no_grad():
+        out = call(True)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES[name] == before + 1
+    assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))
