@@ -1,11 +1,12 @@
 """Effects on AudioSignals: mixing at an SNR, impulse-response
-convolution with DRR alteration, loudness normalization, EQ and pitch
-shift.
+convolution with DRR alteration, loudness normalization, EQ, pitch
+shift, percentile clipping and (mu-law) quantization.
 
 Counterpart of the augmentation-path subset of
 ``audiotools_tpu/core/_effects.py``. Every effect is batched and runs on
 the signal's device.
 """
+import numpy as np
 import torch
 
 from . import util
@@ -139,13 +140,74 @@ class EffectMixin:
         self.audio_data = _filters.equalizer(self.audio_data, db, self.sample_rate)
         return self
 
-    def pitch_shift(self, n_semitones: float, **kwargs):
+    def pitch_shift(self, n_semitones: float, quick: bool = True, **kwargs):
         """Shift pitch by ``n_semitones`` keeping the duration
-        (``ops.stretch.pitch_shift``; keyword arguments pass through)."""
+        (``ops.stretch.pitch_shift``; other keyword arguments pass through).
+        ``quick`` is accepted for the original library's signature and
+        ignored. The cached STFT is dropped."""
         self.audio_data = _stretch.pitch_shift(
             self.audio_data, n_semitones, self.sample_rate, **kwargs
         )
+        self.stft_data = None
         return self
+
+    def clip_distortion(self, clip_percentile):
+        """Clip each item to its ``clip_percentile / 2`` and ``1 -
+        clip_percentile / 2`` quantiles (one percentile per item)."""
+        perc = util.ensure_tensor(clip_percentile, ndim=1, device=self.audio_data.device)
+        perc = perc.reshape(-1).expand(self.batch_size)
+        x = self.audio_data
+        lo, hi = _row_quantiles(x, torch.stack([perc / 2, 1 - perc / 2]))
+        self.audio_data = torch.clamp(x, lo, hi)
+        return self
+
+    def quantization(self, quantization_channels):
+        """Uniform quantization to ``quantization_channels`` levels, with a
+        straight-through gradient."""
+        q = util.ensure_tensor(quantization_channels, ndim=3, device=self.audio_data.device)
+        x = self.audio_data
+        x = (x + 1) / 2
+        x = x * q
+        x = torch.floor(x)
+        x = x / q
+        x = 2 * x - 1
+        self.audio_data = self.audio_data - (self.audio_data - x).detach()
+        return self
+
+    def mulaw_quantization(self, quantization_channels):
+        """Mu-law quantization to ``quantization_channels`` levels, with a
+        straight-through gradient."""
+        mu = util.ensure_tensor(quantization_channels - 1.0, ndim=3,
+                                device=self.audio_data.device).float()
+        x = self.audio_data
+        x = torch.sign(x) * torch.log1p(mu * torch.abs(x)) / torch.log1p(mu)
+        x = ((x + 1) / 2 * mu + 0.5).to(torch.int32).float()  # truncation, as astype
+        x = (x / mu) * 2 - 1.0
+        x = torch.sign(x) * (torch.exp(torch.abs(x) * torch.log1p(mu)) - 1.0) / mu
+        self.audio_data = self.audio_data - (self.audio_data - x).detach()
+        return self
+
+
+def _row_quantiles(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Quantiles ``(Q, B, C, 1)`` of each ``(B, C, T)`` row at per-item
+    levels ``q`` ``(Q, B)``, as ``jnp.quantile`` computes them: a sort, the
+    position ``q (T - 1)`` in fp32, and linear interpolation between its
+    floor and ceiling. A row holding a NaN gives NaN. (``torch.quantile``
+    takes one level for all rows and refuses inputs over 2**24 elements.)"""
+    n = x.shape[-1]
+    last = float(np.float32(n) - np.float32(1))  # n - 1 rounded as fp32 rounds it
+    x = torch.where(torch.isnan(x).any(-1, keepdim=True), torch.nan, x)
+    s = torch.sort(x, dim=-1).values.expand(q.shape[0], *x.shape)
+    pos = q * last
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+
+    def at(p):
+        idx = p.clamp(0, last).long()[..., None, None].expand(*q.shape, x.shape[1], 1)
+        return s.gather(-1, idx)
+
+    return at(low) * low_w[..., None, None] + at(high) * high_w[..., None, None]
 
 
 class ImpulseResponseMixin:

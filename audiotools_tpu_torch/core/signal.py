@@ -9,6 +9,7 @@ and moves each collated batch to the card.
 """
 import copy
 import pathlib
+import warnings
 from collections import namedtuple
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import util
+from ._dsp import DSPMixin, _polar
 from ._effects import EffectMixin, ImpulseResponseMixin
 from .loudness import LoudnessMixin
 from ..ops import fft as _fft
@@ -31,7 +33,12 @@ signal's sample rate (``AudioSignal.stft_params``)."""
 STFTParams.__new__.__defaults__ = (None, None, None, None, None)
 
 
-class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
+def _value(other):
+    """The samples of an AudioSignal; any other operand as it is."""
+    return other.audio_data if isinstance(other, AudioSignal) else other
+
+
+class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
     """Batched audio with its sample rate.
 
     >>> signal = AudioSignal(np.zeros(44100, np.float32), 44100)  # on the card
@@ -230,6 +237,11 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
         shortfall = max(length - self.signal_length, 0)
         return self.zero_pad(shortfall, 0) if mode == "before" else self.zero_pad(0, shortfall)
 
+    def trim(self, before: int, after: int):
+        """Drop ``before`` samples at the start and ``after`` at the end."""
+        self.audio_data = self.audio_data[..., before:self.signal_length - after]
+        return self
+
     def truncate_samples(self, length_in_samples: int):
         self.audio_data = self.audio_data[..., :length_in_samples]
         return self
@@ -284,6 +296,22 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
     def stft_data(self):
         """``(B, C, F, T)`` complex spectrogram cached by :meth:`stft`."""
         return self._stft_data
+
+    @stft_data.setter
+    def stft_data(self, data):
+        if data is not None:
+            data = torch.as_tensor(data)
+            if not data.is_complex():
+                raise ValueError(f"stft_data must be complex, got {data.dtype}")
+            if self._stft_data is not None and self._stft_data.shape != data.shape:
+                warnings.warn("stft_data changed shape")
+        self._stft_data = data
+
+    @staticmethod
+    def get_window(window_type: str, window_length: int, device=None):
+        """Periodic window ``(window_length,)`` (``ops.fft.get_window``, with
+        ``"average"`` and ``"sqrt_hann"``) on ``device``, the CPU by default."""
+        return torch.from_numpy(_fft.get_window(window_type, window_length).copy()).to(device)
 
     @property
     def stft_params(self):
@@ -361,41 +389,111 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin):
 
     @property
     def magnitude(self):
-        """``|STFT|``, computing the STFT first if none is cached."""
+        """``|STFT|``, computing the STFT first if none is cached; setting
+        it keeps the phase."""
         if self.stft_data is None:
             self.stft()
         return self.stft_data.abs()
 
+    @magnitude.setter
+    def magnitude(self, value):
+        self.stft_data = _polar(value, self.phase)
+
+    def log_magnitude(self, ref_value=1.0, amin=1e-5, top_db=80.0):
+        """``|STFT|`` in dB (``ops.fft.log_magnitude``)."""
+        return _fft.log_magnitude(self.magnitude, ref_value, amin, top_db)
+
     @property
     def phase(self):
-        """STFT phase, computing the STFT first if none is cached."""
+        """STFT phase, computing the STFT first if none is cached; setting
+        it keeps the magnitude."""
         if self.stft_data is None:
             self.stft()
         return self.stft_data.angle()
 
+    @phase.setter
+    def phase(self, value):
+        self.stft_data = _polar(self.magnitude, value)
+
+    # -- operators ------------------------------------------------------
+
+    def __add__(self, other):
+        out = self.clone()
+        out.audio_data = out.audio_data + _value(other)
+        return out
+
+    def __iadd__(self, other):
+        self.audio_data = self.audio_data + _value(other)
+        return self
+
+    def __radd__(self, other):
+        return self + other
+
+    def __sub__(self, other):
+        out = self.clone()
+        out.audio_data = out.audio_data - _value(other)
+        return out
+
+    def __mul__(self, other):
+        out = self.clone()
+        out.audio_data = out.audio_data * _value(other)
+        return out
+
     # -- indexing and selection -----------------------------------------
 
     def __getitem__(self, key):
-        """Index the batch (int, slice, index list or bool mask), keeping a
-        cached loudness aligned."""
-        if isinstance(key, np.ndarray):
-            key = torch.from_numpy(key)
-        if isinstance(key, torch.Tensor):
-            key = key.to(self.audio_data.device)
-        out = type(self)(self.audio_data[key], self.sample_rate)
-        if self._loudness is not None:
-            out._loudness = torch.atleast_1d(self._loudness[key])
+        """Index the batch, keeping the STFT parameters and co-indexing a
+        cached STFT and loudness. ``key``: an int, slice, list, tuple, a
+        bool or int array of at most one dimension, or a 0-d True (a
+        signal of batch 1 as it is). A tuple that also indexes channels or
+        samples drops the cached STFT and loudness."""
+        if isinstance(key, (list, np.generic)):
+            key = np.asarray(key)
+        is_array = isinstance(key, (np.ndarray, torch.Tensor))
+        if key is True or (is_array and key.ndim == 0 and key.dtype in (np.bool_, torch.bool)
+                           and bool(key)):
+            if self.batch_size != 1:
+                raise ValueError(f"a 0-d True indexes a signal of batch 1, not {self.batch_size}")
+            audio_data, loudness, stft_data = self.audio_data, self._loudness, self._stft_data
+        elif isinstance(key, (int, slice, tuple)) or (is_array and key.ndim <= 1):
+            if isinstance(key, np.ndarray):
+                key = torch.from_numpy(key)
+            if isinstance(key, torch.Tensor):
+                key = key.to(self.audio_data.device)
+            audio_data = self.audio_data[key]
+            batch_key = key
+            if isinstance(key, tuple):
+                batch_key = key[0] if len(key) == 1 else None
+            loudness = stft_data = None
+            if batch_key is not None:
+                if self._loudness is not None:
+                    loudness = torch.atleast_1d(self._loudness[batch_key])
+                if self._stft_data is not None:
+                    stft_data = self._stft_data[batch_key]
+                    while stft_data.ndim < 4:
+                        stft_data = stft_data[None]
+        else:
+            raise ValueError(f"Unsupported key type: {type(key).__name__}")
+        out = type(self)(audio_data, self.sample_rate, stft_params=self.stft_params)
+        out._loudness = loudness
+        out._stft_data = stft_data
         out.original_signal_length = self.original_signal_length
         return out
 
     @classmethod
     def where(cls, mask, if_true: "AudioSignal", if_false: "AudioSignal"):
-        """Per-item select between two signals of one shape."""
+        """Per-item select between two signals of one shape: the audio, and
+        the cached STFT and loudness where both sides hold one of equal
+        shape (else the result holds none)."""
         mask = torch.as_tensor(np.asarray(mask) if not isinstance(mask, torch.Tensor) else mask)
         mask = mask.to(if_true.audio_data.device).reshape(-1)
         out = if_true.clone()
         out.audio_data = torch.where(mask[:, None, None], if_true.audio_data,
                                      if_false.audio_data)
+        t, f = if_true._stft_data, if_false._stft_data
+        out._stft_data = None
+        if t is not None and f is not None and t.shape == f.shape:
+            out._stft_data = torch.where(mask.reshape((-1,) + (1,) * (t.ndim - 1)), t, f)
         if if_true._loudness is not None and if_false._loudness is not None:
             out._loudness = torch.where(mask, if_true._loudness, if_false._loudness)
         return out

@@ -106,6 +106,22 @@ def sample_from_dist(dist_tuple: tuple, state: np.random.RandomState = None):
     return getattr(state, dist_tuple[0])(*dist_tuple[1:])
 
 
+def dist_lower_bound(dist_tuple, default: float = None):
+    """The least value a distribution tuple can give, where it can be read
+    off the tuple (``"const"``, ``"uniform"``, ``"choice"`` or a number),
+    else ``default``. ``LowPass`` and ``HighPass`` size their sinc support
+    by it."""
+    if isinstance(dist_tuple, (int, float)):
+        return float(dist_tuple)
+    if isinstance(dist_tuple, (tuple, list)) and dist_tuple:
+        kind = dist_tuple[0]
+        if kind in ("const", "uniform"):
+            return float(dist_tuple[1])
+        if kind == "choice":
+            return float(min(dist_tuple[1]))
+    return default
+
+
 def find_audio(folder, ext: List[str] = AUDIO_EXTENSIONS):
     """Audio files under ``folder`` (recursively), or ``[folder]`` when it
     names an audio file itself."""

@@ -29,6 +29,7 @@ __all__ = [
     "istft",
     "mel_filters",
     "mel_spectrogram",
+    "log_magnitude",
 ]
 
 
@@ -348,3 +349,16 @@ def mel_spectrogram(audio: torch.Tensor, sample_rate: int, n_mels: int = 80,
     )
     with strict_fp32():
         return basis @ spec.abs()
+
+
+def log_magnitude(magnitude: torch.Tensor, ref_value: float = 1.0, amin: float = 1e-5,
+                  top_db: float = 80.0) -> torch.Tensor:
+    """Magnitude in dB (librosa's ``amplitude_to_db``): ``10 log10(max(|x|^2,
+    amin^2)) - 10 log10(max(amin^2, ref))``, floored at ``top_db`` below the
+    largest value of the whole tensor."""
+    amin = amin ** 2
+    log_spec = 10.0 * torch.log10(torch.clamp(magnitude ** 2, min=amin))
+    log_spec = log_spec - 10.0 * np.log10(np.maximum(amin, ref_value))
+    if top_db is not None:
+        log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec

@@ -1,11 +1,13 @@
-"""FIR/IIR filtering on tensors: the mel-band graphic equalizer, causal
+"""FIR/IIR filtering on tensors: the mel-band graphic equalizer, the
+windowed-sinc low- and high-pass, pre-emphasis, causal and overlap-save
 FFT convolution, truncated biquad FIRs and the exact blocked IIR cascade.
 
 Counterpart of ``audiotools_tpu/ops/filters.py`` for the augmentation
 path. The equalizer collapses its band-split into one per-item FIR and
-runs it through kernel A (``hopper_kernels.fir_causal_batch``); the IIR
-cascade runs by block state-space lifting: per-block Toeplitz matmuls in
-fp32 plus a sequential recurrence over block states.
+runs it through kernel A (``hopper_kernels.fir_causal_batch``); the sinc
+filters convolve by ``torch.fft`` in fp32; the IIR cascade runs by block
+state-space lifting: per-block Toeplitz matmuls in fp32 plus a sequential
+recurrence over block states.
 """
 import functools
 import math
@@ -20,6 +22,11 @@ from ._fp32 import strict_fp32
 __all__ = [
     "mel_band_cutoffs",
     "equalizer",
+    "lowpass_kernel",
+    "low_pass",
+    "high_pass",
+    "overlap_save_valid",
+    "preemphasis",
     "causal_fft_conv1d",
     "fir_from_biquad",
     "iir_cascade_blocked",
@@ -75,6 +82,106 @@ def _fft_conv_valid(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     X = torch.fft.rfft(x, n=n)
     H = torch.fft.rfft(kernels[:, None].flip(-1), n=n)
     return torch.fft.irfft(X * H, n=n)[..., L - 1 :]
+
+
+def _auto_block(overlap: int, scale: int, lo: int, hi: int) -> int:
+    """Overlap-save block size: ``next_pow2(scale * overlap)`` clamped to
+    ``[lo, hi]``, or ``None`` (one full-length FFT) when that block does
+    not exceed twice the overlap. The JAX package's rule, kept so both
+    packages take the same route."""
+    bs = min(max(_next_pow2(max(1, scale * overlap)), lo), hi)
+    return bs if bs > 2 * overlap else None
+
+
+def overlap_save_valid(x: torch.Tensor, kernels: torch.Tensor, nfft: int,
+                       correlate: bool = True) -> torch.Tensor:
+    """Valid-mode overlap-save convolution in ``nfft``-point blocks.
+
+    Returns full-convolution indices ``[L - 1 : T]`` of ``(..., T)`` signals
+    against ``(..., L)`` kernels whose leading dims broadcast against the
+    signal's. ``correlate=True`` flips the kernels (``conv1d``'s
+    convention).
+    """
+    L = kernels.shape[-1]
+    if nfft <= L - 1:
+        raise ValueError(f"nfft ({nfft}) must exceed kernel overlap ({L - 1})")
+    hop = nfft - (L - 1)
+    T = x.shape[-1]
+    n_out = T - (L - 1)
+    nblk = -(-n_out // hop)
+    total = (nblk - 1) * hop + nfft
+    blocks = F.pad(x, (0, max(0, total - T))).unfold(-1, nfft, hop)  # (..., nblk, nfft)
+    k = kernels.flip(-1) if correlate else kernels
+    H = torch.fft.rfft(k[..., None, :], n=nfft)  # (..., 1, F)
+    y = torch.fft.irfft(torch.fft.rfft(blocks, n=nfft) * H, n=nfft)[..., L - 1 :]
+    return y.reshape(y.shape[:-2] + (nblk * hop,))[..., :n_out]
+
+
+def lowpass_kernel(cutoff, zeros: int, half_size: int) -> torch.Tensor:
+    """Windowed-sinc low-pass kernels over a fixed support.
+
+    ``cutoff`` (a scalar or ``(B,)``, a fraction of the sample rate in (0,
+    0.5]) gives taps ``2 c hann(2h + 1) sinc(2 pi c t)`` for ``|t| <= h``,
+    ``h = floor(zeros / c / 2)``, normalized to unit sum, and zero outside;
+    so any ``half_size >= h`` gives the same filter. A cutoff of at least
+    0.5 gives the identity, one of at most 0 a zero kernel. Returns ``(B,
+    2 half_size + 1)`` (or ``(2 half_size + 1,)`` for a scalar), fp32.
+    """
+    cutoff = torch.as_tensor(cutoff, dtype=torch.float32)
+    scalar = cutoff.ndim == 0
+    c = torch.atleast_1d(cutoff)[:, None]  # (B, 1)
+    t = torch.arange(-half_size, half_size + 1, dtype=torch.float32, device=c.device)[None, :]
+    h = torch.floor(torch.full_like(c, zeros) / c / 2.0)  # per-item half support
+    inside = t.abs() <= h
+    # hann_window(2h + 1, periodic=False) centered: cos^2(pi t / (2h))
+    window = torch.cos(math.pi * t / (2.0 * torch.clamp(h, min=1.0))) ** 2
+    arg = 2.0 * c * math.pi * t
+    sinc = torch.where(arg.abs() < 1e-8, 1.0, torch.sin(arg) / torch.where(arg == 0, 1.0, arg))
+    kernel = torch.where(inside, 2.0 * c * window * sinc, 0.0)
+    kernel = kernel / kernel.sum(-1, keepdim=True)
+    kernel = torch.where(c >= 0.5, (t == 0).to(kernel.dtype), kernel)
+    kernel = torch.where(c <= 0.0, 0.0, kernel)
+    return kernel[0] if scalar else kernel
+
+
+def low_pass(audio: torch.Tensor, cutoffs, sample_rate: int, zeros: int = 51,
+             min_cutoff_hz: float = 40.0, block_size="auto") -> torch.Tensor:
+    """Low-pass ``(B, C, T)`` audio with per-item cutoffs in Hz (a scalar or
+    ``(B,)``), replicate-padded at both ends.
+
+    Cutoffs below ``min_cutoff_hz`` are raised to it; the sinc support is
+    sized by the smallest cutoff given (read on the host), so it is as
+    short as the cutoffs allow. ``block_size``: ``"auto"`` convolves in
+    overlap-save blocks when the kernel is short enough for them to pay
+    (``_auto_block``), ``None`` by one full-length FFT, an int in blocks of
+    that size.
+    """
+    B, C, T = audio.shape
+    c_in = torch.as_tensor(cutoffs, dtype=torch.float32)
+    min_cutoff_hz = max(min_cutoff_hz, min(float(c_in.min()), sample_rate / 2))
+    c = torch.atleast_1d(c_in).reshape(-1).to(audio.device).expand(B)
+    c = torch.clamp(c, min=min_cutoff_hz) / sample_rate
+    half = max(1, int(zeros / (min_cutoff_hz / sample_rate) / 2))
+    kernels = lowpass_kernel(c, zeros, half)  # (B, 2 half + 1)
+    x = _edge_pad(audio, half)
+    L = kernels.shape[-1]
+    if block_size == "auto":
+        block_size = _auto_block(L - 1, 8, 4096, 32768)
+    if block_size is not None and block_size > 2 * (L - 1):
+        return overlap_save_valid(x, kernels[:, None, :], block_size)[..., :T]
+    return _fft_conv_valid(x, kernels)[..., :T]
+
+
+def high_pass(audio: torch.Tensor, cutoffs, sample_rate: int, zeros: int = 51,
+              min_cutoff_hz: float = 40.0, block_size="auto") -> torch.Tensor:
+    """High-pass: the audio less its :func:`low_pass`."""
+    return audio - low_pass(audio, cutoffs, sample_rate, zeros, min_cutoff_hz, block_size)
+
+
+def preemphasis(audio: torch.Tensor, coef: float = 0.85) -> torch.Tensor:
+    """Pre-emphasis as a conv1d with kernel ``[1, -coef, 0]`` and padding 1
+    computes it: ``y[n] = x[n - 1] - coef x[n]``, with ``x[-1] = 0``."""
+    return F.pad(audio, (1, 0))[..., :-1] - coef * audio
 
 
 def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8) -> torch.Tensor:

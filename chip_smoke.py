@@ -49,7 +49,16 @@ runs, on card 0:
 9. one step of each on the card and on the CPU at batch 2 from the same
    weights, inside ``strict_fp32``: losses, the generator's gradient norm,
    the parameters after the update, the encoder's latents, the decoder on
-   the same codes, and the code agreement (reported).
+   the same codes, and the code agreement (reported);
+10. the augmentation zoo: 64 clips of 5 s from AudioDataset -> DataLoader
+   (8 workers; every parameter, loaded signal and noise plane drawn on the
+   host) through a Compose of every leaf transform, probabilities below 1
+   mixing the masks within the batch, run 6 times (the first through
+   ``Compose.transform``, untimed; then child by child, as Compose runs
+   them, with CUDA events between): ms a batch per transform and for the
+   chain, peak memory and kernel A's launches (its equalizers); then each
+   transform on the card and on the CPU for the first 4 clips from the same
+   input, against stated tolerances.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -125,6 +134,24 @@ LR = 1e-4
 # entry in 1000 may differ by more than 1e-3 LR, and none by more than 2 LR.
 TRAIN_TOL = {"latent_rel": 1e-4, "decoded_rel": 1e-4, "loss_rel": 1e-4,
              "grad_norm_rel": 1e-3, "update_lr": 1e-3, "update_share": 1e-3}
+
+# the augmentation zoo, card vs CPU on the same input, each transform alone.
+# Every transform: max abs error on the audio, the chain's fp32 bound above
+# (FFTs, kernel A and the meters sum in other orders on the two sides). The
+# quantizers move a sample by a whole level when their input lies within
+# rounding of a level's edge ((x + 1) / 2 q, and mu-law's log1p and exp,
+# round differently on the card), so they are judged by the share of
+# samples differing by more than that bound. TimeNoise and FrequencyNoise
+# fill every cell whose magnitude and phase are 0, as the JAX package does,
+# so also a cell that was exactly zero before their mask when the sign of
+# the FFT's zero gives it phase 0. Such cells lie in frames of digital
+# silence or of few distinct values (the quantizers make both), where one
+# FFT may cancel to an exact zero and the other not, and cuFFT and the
+# CPU's FFT sign their zeros differently. Their bound holds outside the
+# frames in which either device's STFT of their input holds an exact zero.
+ZOO_RUNS = 6  # the first through Compose.transform, untimed
+ZOO_ABS = 1e-4
+ZOO_SHARE = 1e-3
 
 
 def fail(msg):
@@ -630,6 +657,143 @@ def make_dataset(root, n_examples):
                         n_examples=n_examples, duration=DURATION, transform=transform)
 
 
+def make_zoo_dataset(root, n_examples):
+    """AudioDataset over the speech fixtures with every leaf transform."""
+    from audiotools_tpu_torch.data import transforms as tfm
+    from audiotools_tpu_torch.data.datasets import AudioDataset, AudioLoader
+
+    transform = tfm.Compose(
+        tfm.RoomImpulseResponse(sources=[str(root / "ir.csv")]),
+        tfm.BackgroundNoise(sources=[str(root / "nz.csv")]),
+        tfm.CrossTalk(sources=[str(root / "spk.csv")]),
+        tfm.NoiseFloor(), tfm.Choose(tfm.LowPass(), tfm.HighPass()), tfm.Equalizer(),
+        tfm.ClippingDistortion(prob=0.5),
+        tfm.Choose(tfm.Quantization(), tfm.MuLawQuantization(), prob=0.5),
+        tfm.Smoothing(prob=0.5), tfm.RepeatUpTo(tfm.VolumeChange(), max_repeat=3),
+        tfm.SpectralDenoising(prob=0.5),
+        tfm.Choose(tfm.ShiftPhase(), tfm.InvertPhase(), tfm.CorruptPhase()),
+        tfm.FrequencyMask(prob=0.5), tfm.TimeMask(prob=0.5), tfm.MaskLowMagnitudes(prob=0.5),
+        tfm.FrequencyNoise(prob=0.5), tfm.TimeNoise(prob=0.5), tfm.Silence(),
+        tfm.GlobalVolumeNorm(), tfm.VolumeNorm(), tfm.RescaleAudio(),
+    )
+    return AudioDataset(AudioLoader(sources=[str(root / "spk.csv")]), sample_rate=SR,
+                        n_examples=n_examples, duration=DURATION, transform=transform)
+
+
+def _holds(tfm, kinds):
+    """Whether a transform of the zoo is, or holds, one of ``kinds``."""
+    return isinstance(tfm, kinds) or any(_holds(c, kinds) for c in getattr(tfm, "transforms", []))
+
+
+def _zero_cell_samples(signal):
+    """``(B, C, T)`` bool: the samples inside a frame whose STFT (at the
+    signal's parameters) holds a cell that is exactly zero."""
+    p = signal.stft_params
+    zero = (signal.clone().stft().abs() == 0).any(dim=-2)  # (B, C, frames)
+    out = torch.zeros(signal.audio_data.shape, dtype=torch.bool)
+    for b, c, t in zero.nonzero().tolist():
+        start = t * p.hop_length - p.window_length // 2
+        out[b, c, max(start, 0):max(start + p.window_length, 0)] = True
+    return out
+
+
+def _zoo_children(ds, batch, marks):
+    """The zoo chain child by child, as ``Compose`` runs it, appending a
+    CUDA event to ``marks`` before the first and after each."""
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    signal = batch["signal"].clone()
+    kwargs = batch["transform_args"]["Compose"]
+    mark()
+    for tfm in ds.transform:
+        signal = tfm(signal, **kwargs)
+        mark()
+    return signal
+
+
+def phase_zoo(root, dev, card):
+    """The zoo chain on a staged batch of 64 x 5 s: the first run through
+    ``Compose.transform``, then timed child by child. Launch counts are set
+    to 0 just before the first run and read just after the last."""
+    from audiotools_tpu_torch.core import util
+    from audiotools_tpu_torch.data import DataLoader
+    from audiotools_tpu_torch.data import transforms as tfms
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    ds = make_zoo_dataset(root, BATCH)
+    t0 = time.perf_counter()
+    batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8)))  # to the card by default
+    torch.cuda.synchronize()
+    print(f"[zoo] first batch through DataLoader (8 workers, staged to the card): "
+          f"{time.perf_counter() - t0:.2f} s")
+    args = batch["transform_args"]["Compose"]
+    names = [t.name for t in ds.transform]
+    applied = {n: int(np.asarray(args[n]["mask"]).sum()) for n in names}
+    print(f"[zoo] items each transform applies to (of {BATCH}): {applied}")
+    expect(batch["signal"].device.type == "cuda", f"zoo batch on {batch['signal'].device}")
+    expect(any(0 < v < BATCH for v in applied.values()), "no transform mixes its mask")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    HK.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ds.transform(batch["signal"].clone(), **batch["transform_args"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    stages = np.zeros(len(names))
+    t0 = time.perf_counter()
+    for _ in range(ZOO_RUNS - 1):
+        marks = []
+        out = _zoo_children(ds, batch, marks)
+        torch.cuda.synchronize()
+        stages += [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    wall_ms = (time.perf_counter() - t0) * 1000 / (ZOO_RUNS - 1)
+    launches = dict(HK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stages /= ZOO_RUNS - 1
+    ms = float(stages.sum())
+    print(f"[zoo] {len(names)} transforms, {BATCH} x {DURATION:g} s @ {SR} Hz: {ms:.3f} ms/batch "
+          f"(CUDA events, mean of {ZOO_RUNS - 1} runs after one untimed of {first_s:.2f} s; host "
+          f"wall {wall_ms:.3f} ms) | {BATCH / ms * 1000:.1f} clips/s | peak {peak / 2**30:.3f} "
+          f"GiB | {card}")
+    print("[zoo] per transform (ms): " + ", ".join(f"{n} {t:.3f}" for n, t in zip(names, stages)))
+    print(f"[zoo] kernel launches ({ZOO_RUNS} runs): {launches}")
+    expect(launches["fir_causal_batch"] > 0, f"zoo: kernel A was not launched: {launches}")
+    expect(tuple(out.audio_data.shape) == (BATCH, 1, int(SR * DURATION)),
+           f"zoo output shape {tuple(out.audio_data.shape)}")
+    expect(bool(torch.isfinite(out.audio_data).all()), "zoo: non-finite output")
+    expect(float(out.audio_data.abs().max()) <= 1.0 + 1e-6, "zoo: RescaleAudio left a peak above 1")
+    del out, batch
+
+    items = util.collate([ds[i] for i in range(N_CHECK)])
+    on_card, on_cpu = util.prepare_batch(items, dev), util.prepare_batch(items, "cpu")
+    signal = on_cpu["signal"].clone()
+    errors = {}
+    quantizers = (tfms.Quantization, tfms.MuLawQuantization)
+    for tfm in ds.transform:
+        kept = torch.ones(signal.audio_data.shape, dtype=torch.bool)
+        if _holds(tfm, (tfms.TimeNoise, tfms.FrequencyNoise)):
+            kept = ~(_zero_cell_samples(signal) | _zero_cell_samples(signal.clone().to(dev)))
+        got = tfm(signal.clone().to(dev), **on_card["transform_args"]["Compose"])
+        signal = tfm(signal, **on_cpu["transform_args"]["Compose"])
+        diff = (got.audio_data.cpu() - signal.audio_data).abs()
+        err, share = float(diff[kept].max()), float((diff > ZOO_ABS).float().mean())
+        errors[tfm.name] = (err, share, 1 - float(kept.float().mean()))
+        if _holds(tfm, quantizers):
+            expect(share <= ZOO_SHARE, f"zoo card vs CPU {tfm.name}: share {share:.3e} > {ZOO_SHARE:g}")
+        else:
+            expect(err <= ZOO_ABS, f"zoo card vs CPU {tfm.name}: {err:.3e} > {ZOO_ABS:g}")
+    print(f"[zoo card vs cpu] {N_CHECK} clips, each transform on the same input: max abs err "
+          f"(tol {ZOO_ABS:g}) / share of samples over it (quantizers, tol {ZOO_SHARE:g}) / share "
+          f"left out (frames where either STFT holds an exact zero; noise fills only): " + ", ".join(
+              f"{n} {e:.3e}/{s:.2e}/{x:.2e}" for n, (e, s, x) in errors.items()))
+    expect(bool(torch.isfinite(signal.audio_data).all()), "zoo on the CPU: non-finite output")
+    return launches, dict(ms=ms, stages=dict(zip(names, stages.tolist())), peak=peak,
+                          errors=errors)
+
+
 def run_chain(ds, batch, synthesis_method="matmul_bf16", marks=None):
     """The main path on a staged batch; ``marks`` collects a CUDA event
     after each stage (chain, pitch shift, mel, loudness). The meter is the
@@ -1026,6 +1190,7 @@ def main():
         phase_card_vs_cpu(ds, dev)
         launches["pitch_grad"], _ = phase_pitch_grad(batch["signal"].audio_data)
         del batch
+        launches["zoo"], _ = phase_zoo(root, dev, card)
         train_audio, train_launches, _ = phase_codec_training(root, dev, card)
         launches.update(train_launches)
         phase_training_card_vs_cpu(train_audio, dev)
@@ -1034,21 +1199,21 @@ def main():
     if FAILED:
         fail(f"{len(FAILED)} failed checks: {FAILED}")
 
-    def row(name, source, line, path, results, key=None):
+    def row(name, source, line, paths, results, key=None):
         """``results``: {shape label: measurements}, reported at ``key``, or
-        the measurements of one shape."""
+        the measurements of one shape; ``launches`` summed over ``paths``."""
         if key is None:
             results, key = {key: results}, key
         at = results[key]
         return {"name": name, "route": "cuda", "source": f"audiotools_tpu_torch/csrc/{source}",
                 "replaces": f"audiotools_tpu/ops/pallas_kernels.py:{line}",
-                "launches": launches[path][name],
+                "launches": sum(launches[path][name] for path in paths.split("+")),
                 "max_abs_err": max(v["abs_err"] for v in results.values()),
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                                       "library", "library_ms")}}
 
     kernels = [
-        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main", a, "equalizer"),
+        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+zoo", a, "equalizer"),
         row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main", b, "path"),
         row("fir_causal", "fir_causal_batch.cu", 100, "parity", c, "meter"),
         # D has no caller in the library: its own path is its entry point

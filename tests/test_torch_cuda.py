@@ -415,3 +415,78 @@ def test_kernels_without_backward_raise_on_grad(cuda, name):
     torch.cuda.synchronize()
     assert HK.LAUNCHES[name] == before + 1
     assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))
+
+
+# -- the augmentation zoo: each transform on the card against the CPU --------
+
+ZOO_SOURCES = {"BackgroundNoise": "nz.csv", "CrossTalk": "spk.csv",
+               "RoomImpulseResponse": "ir.csv"}
+ZOO_LEAVES = ["BackgroundNoise", "ClippingDistortion", "CorruptPhase", "CrossTalk", "Equalizer",
+              "FrequencyMask", "FrequencyNoise", "GlobalVolumeNorm", "HighPass", "InvertPhase",
+              "LowPass", "MaskLowMagnitudes", "MuLawQuantization", "NoiseFloor", "Quantization",
+              "RescaleAudio", "RoomImpulseResponse", "ShiftPhase", "Silence", "Smoothing",
+              "SpectralDenoising", "TimeMask", "TimeNoise", "VolumeChange", "VolumeNorm"]
+# chip_smoke.py's zoo bounds: max abs error on the audio, and for the
+# quantizers the share of samples differing by more than it (a sample whose
+# input lies within rounding of a level's edge moves by a whole level)
+ZOO_ABS, ZOO_SHARE = 1e-4, 1e-3
+
+
+@pytest.fixture(scope="module")
+def zoo_sources(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import build_fixture_tree
+
+    root = tmp_path_factory.mktemp("zoo")
+    build_fixture_tree(root)
+    return root
+
+
+@pytest.mark.parametrize("name", ZOO_LEAVES)
+def test_transform_on_card_matches_cpu(cuda, zoo_sources, name):
+    """4 clips of 5 s, masks mixed by probability 0.5, the same drawn
+    arguments staged to each device."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.core import util
+    from audiotools_tpu_torch.data import transforms as tfm
+    from chip_smoke import speech_like
+
+    kwargs = {"prob": 0.5}
+    if name in ZOO_SOURCES:
+        kwargs["sources"] = [str(zoo_sources / ZOO_SOURCES[name])]
+    transform = getattr(tfm, name)(**kwargs)
+    x = np.stack([speech_like(20 + i, 5.0)[None] for i in range(4)])
+    item = AudioSignal(x[:1].copy(), 44100, device="cpu")
+    item.metadata["loudness"] = -20.0
+    drawn = transform.batch_instantiate([0, 1, 2, 3], item)
+    before = HK.LAUNCHES["fir_causal_batch"]
+    got = transform(AudioSignal(torch.from_numpy(x).to(cuda), 44100),
+                    **util.prepare_batch(drawn, cuda))
+    torch.cuda.synchronize()
+    launched = HK.LAUNCHES["fir_causal_batch"] - before
+    want = transform(AudioSignal(torch.from_numpy(x), 44100), **util.prepare_batch(drawn, "cpu"))
+    assert got.device.type == "cuda" and got.audio_data.shape == want.audio_data.shape
+    diff = (got.audio_data.cpu() - want.audio_data).abs()
+    if name in ("Quantization", "MuLawQuantization"):
+        assert float((diff > ZOO_ABS).float().mean()) <= ZOO_SHARE
+    else:
+        assert float(diff.max()) <= ZOO_ABS
+    if name in ("BackgroundNoise", "Equalizer", "RoomImpulseResponse", "SpectralDenoising"):
+        assert launched > 0  # their equalizers run through kernel A
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_clip_distortion_at_full_width_matches_cpu(cuda, channels):
+    """64 x 220,500 samples (and 64 x 2 x 220,500, over torch.quantile's
+    2**24-element limit) with one percentile per item: the sort-based
+    quantiles give the CPU's result exactly."""
+    from audiotools_tpu_torch import AudioSignal
+
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy((rng.randn(64, channels, 220500) * 0.1).astype(np.float32))
+    perc = rng.uniform(0.0, 0.1, 64).astype(np.float32)
+    got = AudioSignal(x.to(cuda), 44100).clip_distortion(perc).audio_data
+    want = AudioSignal(x.clone(), 44100).clip_distortion(perc).audio_data
+    assert torch.equal(got.cpu(), want)
+    assert float(got.abs().max()) < float(x.abs().max())

@@ -9,6 +9,7 @@ from audiotools_tpu.core import Meter as JMeter
 from audiotools_tpu_torch import AudioSignal, Meter
 from audiotools_tpu_torch.core import util
 from audiotools_tpu_torch.io import write_wav
+from audiotools_tpu_torch.ops import fft as PF
 
 SR = 44100
 
@@ -151,3 +152,95 @@ def test_ensure_tensor_and_random_state():
     assert util.sample_from_dist(("const", 4)) == 4
     batch = util.collate([{"a": 1, "b": {"c": 0.5}}, {"a": 2, "b": {"c": 1.5}}])
     assert batch["a"].dtype == np.int32 and batch["b"]["c"].dtype == np.float32
+
+
+# -- repairs of the STFT cache and the pitch shift's signature ---------------
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_pitch_shift_drops_the_cached_stft():
+    """R6: after ``stft(); pitch_shift(2)`` the magnitude is the shifted
+    audio's, as in the JAX package. The pitch shift's pin is 1e-4 on the
+    audio (tests/test_torch_defaults.py); through the STFT a sample's error
+    moves a bin by at most the window's sum times it."""
+    p, j = _pair(_audio(20, (2, 1, 8192)))
+    before = p.stft().abs().clone()
+    j.stft()
+    p.pitch_shift(2)
+    j.pitch_shift(2)
+    assert p.stft_data is None
+    assert np.abs(p.audio_data.numpy() - np.asarray(j.audio_data)).max() < 1e-4
+    window_sum = float(np.sum(PF.get_window("hann", 2048)))
+    assert np.abs(p.magnitude.numpy() - np.asarray(j.magnitude)).max() < 1e-4 * window_sum
+    assert torch.equal(p.magnitude, p.clone().stft().abs())
+    assert _rel(p.magnitude.numpy(), before.numpy()) > 1e-2
+
+
+def test_getitem_keeps_stft_params_and_co_indexes_the_stft():
+    """R7: a slice of a signal with a 512/128 STFT keeps its parameters and
+    its cached STFT, as the JAX package's does."""
+    from audiotools_tpu.core import STFTParams as JParams
+    from audiotools_tpu_torch.core.signal import STFTParams
+
+    x = _audio(21, (3, 1, 8192))
+    p = AudioSignal(x.copy(), SR, stft_params=STFTParams(512, 128), device="cpu")
+    j = JSignal(x.copy(), SR, stft_params=JParams(512, 128))
+    p.stft()
+    j.stft()
+    p.loudness()
+    for key in (slice(0, 1), np.array([True, False, True]), [2, 0], 1):
+        got, want = p[key], j[key]
+        assert got.stft_params == tuple(want.stft_params)
+        # the STFT's parity pin (tests/test_torch_ops.py), and exactly the
+        # port's own items
+        assert _rel(got.stft_data.numpy().reshape(-1), np.asarray(want.stft_data).reshape(-1)) < 1e-5
+        items = np.arange(3)[key if not isinstance(key, list) else np.asarray(key)]
+        assert torch.equal(got.stft_data.reshape(-1), p.stft_data[items].reshape(-1))
+        assert got.stft_data.ndim == 4 and got._loudness.ndim == 1
+    one = p[0:1]
+    assert one[np.True_].stft_data is one.stft_data
+    assert p[(0, ..., slice(0, 100))].stft_data is None  # samples indexed: cache dropped
+    with pytest.raises(ValueError, match="batch 1"):
+        p[np.array(True)]
+    with pytest.raises(ValueError, match="Unsupported key"):
+        p[np.zeros((2, 2), bool)]
+
+
+@pytest.mark.parametrize("mismatch", [False, True])
+def test_where_selects_the_cached_stft_per_item(mismatch):
+    """R8: ``where`` of two cached STFTs under a mixed mask takes each item's
+    STFT from its side, as the JAX package does; STFTs of another shape
+    leave the result without one."""
+    a, b = _audio(22, (2, 1, 8192)), _audio(23, (2, 1, 8192))
+    pa, ja = _pair(a)
+    pb, jb = _pair(b)
+    for s in (pa, ja):
+        s.stft()
+    for s in (pb, jb):
+        s.stft(window_length=1024 if mismatch else None, hop_length=256 if mismatch else None)
+    mask = np.array([True, False])
+    got, want = AudioSignal.where(mask, pa, pb), JSignal.where(mask, ja, jb)
+    assert np.array_equal(got.audio_data.numpy(), np.asarray(want.audio_data))
+    if mismatch:
+        assert got.stft_data is None and want.stft_data is None
+    else:
+        assert _rel(got.stft_data.numpy(), want.stft_data) < 1e-5  # the STFT's pin
+        assert torch.equal(got.stft_data[0], pa.stft_data[0])
+        assert torch.equal(got.stft_data[1], pb.stft_data[1])
+
+
+def test_pitch_shift_accepts_quick():
+    """R9: ``quick`` is accepted and ignored; other keywords pass through."""
+    x = _audio(24, (1, 1, 8192))
+    plain = AudioSignal(x.copy(), SR, device="cpu").pitch_shift(2)
+    quick = AudioSignal(x.copy(), SR, device="cpu").pitch_shift(2, quick=True)
+    assert torch.equal(plain.audio_data, quick.audio_data)
+    with pytest.raises(TypeError):
+        AudioSignal(x.copy(), SR, device="cpu").pitch_shift(2, no_such_option=1)
+    phasor = AudioSignal(x.copy(), SR, device="cpu").pitch_shift(2, quick=False,
+                                                                 pv_formulation="phasor")
+    assert not torch.equal(phasor.audio_data, plain.audio_data)

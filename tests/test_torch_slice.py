@@ -9,8 +9,8 @@ the CPU.
 (b') The same for the reference-parity configuration: the FIR meter of
      ``set_fast_meter(True)`` (kernel C's route) and the fused bf16
      synthesis (kernel E's route).
-(c) The port reproduces the committed regression WAVs of the main path's
-    transforms (it never writes them).
+(c) The port reproduces every committed regression WAV, one for each of
+    the 25 leaf transforms (it never writes them).
 """
 import threading
 import time
@@ -41,8 +41,12 @@ from audiotools_tpu_torch.ops import stretch as PS
 from tests.fixtures import speech_like
 
 SR = 44100
-MAIN_PATH = ["RoomImpulseResponse", "BackgroundNoise", "Equalizer", "VolumeNorm"]
 REGRESSION_DIR = Path(__file__).parent / "regression" / "transforms"
+# the leaf transforms, discovered as tests/data/test_regression.py discovers them
+FRAMEWORK = {"BaseTransform", "SpectralTransform", "Compose", "Choose", "Repeat", "RepeatUpTo",
+             "Identity"}
+LEAVES = sorted(x for x in dir(jt) if isinstance(getattr(jt, x), type)
+                and issubclass(getattr(jt, x), jt.BaseTransform) and x not in FRAMEWORK)
 
 
 def _dataset(tfm, Dataset, Loader, root, n, duration=1.0):
@@ -145,13 +149,15 @@ def test_same_output_reference_parity(batches):
     assert np.abs(audio - _port_chain(pds, fed)[0]).max() > 1e-4
 
 
-@pytest.mark.parametrize("name", MAIN_PATH)
+@pytest.mark.parametrize("name", LEAVES)
 def test_regression_wavs(name, audio_dir):
     """The setup of tests/data/test_regression.py, through the port."""
-    sources = {"BackgroundNoise": "nz.csv", "RoomImpulseResponse": "ir.csv"}
+    sources = {"BackgroundNoise": "nz.csv", "CrossTalk": "spk.csv",
+               "RoomImpulseResponse": "ir.csv"}
     cls = getattr(pt, name)
     transform = cls(sources=[str(audio_dir / sources[name])]) if name in sources else cls()
     signal = AudioSignal(speech_like(3, 1.0)[None, None], SR, device="cpu")
+    signal.metadata["loudness"] = float(signal.loudness()[0])
     kwargs = transform.instantiate(0, signal)
     output = transform(signal.clone(), **kwargs)
     golden, sr = read_wav(REGRESSION_DIR / f"{name}.wav")
