@@ -1,15 +1,15 @@
-"""DSP on AudioSignals: the windowed-sinc low- and high-pass, SpecAug
-frequency and time masks, low-magnitude masking, phase shifts and
-corruption, and pre-emphasis.
+"""DSP on AudioSignals: windowing and overlap-add, the windowed-sinc low-
+and high-pass, SpecAug frequency and time masks, low-magnitude masking,
+phase shifts and corruption, and pre-emphasis.
 
-Counterpart of ``audiotools_tpu/core/_dsp.py`` (its windowing helpers are
-not ported yet). Every method is batched, takes per-item parameters and
-runs on the signal's device.
+Counterpart of ``audiotools_tpu/core/_dsp.py``. Every method is batched,
+takes per-item parameters and runs on the signal's device.
 """
 import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import util
 from ..ops import fft as _fft
@@ -39,6 +39,68 @@ def _polar(magnitude, phase):
 
 
 class DSPMixin:
+    _original_batch_size = None
+    _original_num_channels = None
+    _padded_signal_length = None
+
+    def _preprocess_signal_for_windowing(self, window_duration, hop_duration):
+        """Cut the window to a multiple of the hop, pad a hop of zeros at
+        each end, and remember the layout for :meth:`overlap_and_add`."""
+        self._original_batch_size = self.batch_size
+        self._original_num_channels = self.num_channels
+        hop_length = int(hop_duration * self.sample_rate)
+        window_length = int(window_duration * self.sample_rate)
+        window_length -= window_length % hop_length
+        self.zero_pad(hop_length, hop_length)
+        self._padded_signal_length = self.signal_length
+        return window_length, hop_length
+
+    def _windowing_lengths(self, window_duration, hop_duration, preprocess):
+        if preprocess:
+            return self._preprocess_signal_for_windowing(window_duration, hop_duration)
+        return int(window_duration * self.sample_rate), int(hop_duration * self.sample_rate)
+
+    def windows(self, window_duration: float, hop_duration: float, preprocess: bool = True):
+        """Yield the windows of every channel of every item in turn, each a
+        signal ``(1, 1, window_length)`` (with ``preprocess``, as
+        :meth:`collect_windows` cuts them)."""
+        window_length, hop_length = self._windowing_lengths(window_duration, hop_duration,
+                                                            preprocess)
+        self.audio_data = self.audio_data.reshape(-1, 1, self.signal_length)
+        n_frames = max(1 + (self.signal_length - window_length) // hop_length, 0)
+        for b in range(self.batch_size):
+            for i in range(n_frames):
+                start = i * hop_length
+                yield self[b, ..., start:start + window_length]
+
+    def collect_windows(self, window_duration: float, hop_duration: float,
+                        preprocess: bool = True):
+        """Reshape into overlapping windows along the batch: ``(B C n_frames,
+        1, window_length)``, item by item and channel by channel."""
+        window_length, hop_length = self._windowing_lengths(window_duration, hop_duration,
+                                                            preprocess)
+        flat = self.audio_data.reshape(-1, self.signal_length)
+        frames = flat.unfold(-1, window_length, hop_length)  # (B C, n_frames, window)
+        self.audio_data = frames.reshape(-1, 1, window_length)
+        return self
+
+    def overlap_and_add(self, hop_duration: float):
+        """Overlap-add the windows of :meth:`collect_windows` back into
+        signals, dividing each sample by the number of windows over it, and
+        trim the padding."""
+        hop_length = int(hop_duration * self.sample_rate)
+        window_length = self.signal_length
+        nb, nch = self._original_batch_size, self._original_num_channels
+        out_len = self._padded_signal_length
+        stacked = self.audio_data.reshape(nb * nch, -1, window_length).transpose(1, 2)
+        fold = dict(output_size=(1, out_len), kernel_size=(1, window_length),
+                    stride=(1, hop_length))
+        folded = F.fold(stacked, **fold)  # (nb nch, 1, 1, out_len)
+        coverage = F.fold(torch.ones_like(stacked[:1]), **fold)
+        self.audio_data = (folded / coverage).reshape(nb, nch, out_len)
+        self.trim(hop_length, hop_length)
+        return self
+
     def low_pass(self, cutoffs, zeros: int = 51, min_cutoff_hz: float = None,
                  block_size="auto"):
         """Low-pass with per-item cutoffs in Hz (``ops.filters.low_pass``);

@@ -1,10 +1,12 @@
 """Effects on AudioSignals: mixing at an SNR, impulse-response
-convolution with DRR alteration, loudness normalization, EQ, pitch
-shift, percentile clipping and (mu-law) quantization.
+convolution with DRR alteration, loudness normalization, EQ and the mel
+band split, pitch shift and time stretch, percentile clipping, (mu-law)
+quantization and the PCM codec presets.
 
-Counterpart of the augmentation-path subset of
-``audiotools_tpu/core/_effects.py``. Every effect is batched and runs on
-the signal's device.
+Counterpart of ``audiotools_tpu/core/_effects.py``. Every effect is
+batched and runs on the signal's device. The compressed codecs (MP3,
+Vorbis, GSM, AMR-NB) need a host codec layer this package does not have
+yet, and raise.
 """
 import numpy as np
 import torch
@@ -17,6 +19,15 @@ from ..ops import stretch as _stretch
 
 class EffectMixin:
     GAIN_FACTOR = _loudness.GAIN_FACTOR
+    CODEC_PRESETS = {
+        "8-bit": {"format": "wav", "encoding": "ULAW", "bits_per_sample": 8},
+        "GSM-FR": {"format": "gsm"},
+        "MP3": {"format": "mp3", "compression": -9},
+        "Vorbis": {"format": "vorbis", "compression": -1},
+        "Ogg": {"format": "ogg", "compression": -1},
+        "Amr-nb": {"format": "amr-nb"},
+    }
+    """The original library's codec presets; only the ``wav`` ones run here."""
 
     def mix(self, other, snr=10, other_eq=None):
         """Mix ``other`` into this signal at ``snr`` dB below its loudness,
@@ -132,12 +143,19 @@ class EffectMixin:
         self.audio_data = self.audio_data * torch.exp(db * self.GAIN_FACTOR)[:, None, None]
         return self
 
-    def equalizer(self, db):
-        """Mel-spaced graphic EQ; ``db`` is ``(n_bands,)`` or ``(1 or B, n_bands)``."""
+    def mel_filterbank(self, n_bands: int):
+        """The audio split into ``n_bands`` mel bands, ``(B, C, T, n_bands)``
+        (``ops.filters.split_bands``)."""
+        return _filters.split_bands(self.audio_data, self.sample_rate, n_bands)
+
+    def equalizer(self, db, conv_method: str = None):
+        """Mel-spaced graphic EQ; ``db`` is ``(n_bands,)`` or ``(1 or B,
+        n_bands)``; ``conv_method`` as ``ops.filters.equalizer`` takes it."""
         db = util.ensure_tensor(db, device=self.audio_data.device)
         if db.ndim == 2 and db.shape[0] not in (1, self.batch_size):
             raise ValueError("EQ batch dim must be 1 or match the signal")
-        self.audio_data = _filters.equalizer(self.audio_data, db, self.sample_rate)
+        self.audio_data = _filters.equalizer(self.audio_data, db, self.sample_rate,
+                                             conv_method=conv_method)
         return self
 
     def pitch_shift(self, n_semitones: float, quick: bool = True, **kwargs):
@@ -150,6 +168,38 @@ class EffectMixin:
         )
         self.stft_data = None
         return self
+
+    def time_stretch(self, factor: float, quick: bool = True, **kwargs):
+        """Stretch the duration by ``1 / factor`` keeping the pitch
+        (``ops.stretch.time_stretch``; other keyword arguments, such as
+        ``pv_formulation``, pass through). ``quick`` is accepted for the
+        original library's signature and ignored. The cached STFT is
+        dropped."""
+        self.audio_data = _stretch.time_stretch(self.audio_data, factor, **kwargs)
+        self.stft_data = None
+        return self
+
+    def apply_codec(self, preset: str = None, format: str = "wav", encoding: str = None,
+                    bits_per_sample: int = None, compression: int = None):
+        """Round-trip through a codec: a ``preset`` of ``CODEC_PRESETS`` or
+        the format given. ``wav`` runs on the device as uniform quantization
+        at ``bits_per_sample`` (16 by default), or mu-law with ``encoding
+        "ULAW"`` (8 by default); other formats raise ``RuntimeError``."""
+        if preset is None:
+            kwargs = dict(format=format, encoding=encoding, bits_per_sample=bits_per_sample,
+                          compression=compression)
+        elif preset in self.CODEC_PRESETS:
+            kwargs = dict(self.CODEC_PRESETS[preset])
+        else:
+            raise ValueError(f"Unknown preset: {preset}. "
+                             f"Known presets: {list(self.CODEC_PRESETS.keys())}")
+        fmt = kwargs.get("format", "wav")
+        if fmt != "wav":
+            raise RuntimeError(f"Codec format '{fmt}' needs a host codec layer this package "
+                               "does not have yet; native support: wav (PCM, ULAW).")
+        if kwargs.get("encoding") == "ULAW":
+            return self.mulaw_quantization(2 ** (kwargs.get("bits_per_sample") or 8))
+        return self.quantization(2 ** (kwargs.get("bits_per_sample") or 16))
 
     def clip_distortion(self, clip_percentile):
         """Clip each item to its ``clip_percentile / 2`` and ``1 -
@@ -186,6 +236,10 @@ class EffectMixin:
         x = torch.sign(x) * (torch.exp(torch.abs(x) * torch.log1p(mu)) - 1.0) / mu
         self.audio_data = self.audio_data - (self.audio_data - x).detach()
         return self
+
+
+    def __matmul__(self, other):
+        return self.convolve(other)
 
 
 def _row_quantiles(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,17 @@
 """AudioSignal: a batch of audio as one ``(B, C, T)`` tensor.
 
-Counterpart of the augmentation-path subset of
-``audiotools_tpu/core/signal.py``. The class holds tensors and host
+Counterpart of ``audiotools_tpu/core/signal.py`` without its JAX pytree
+plumbing and the display, playback, ffmpeg and whisper mixins. The class
+holds tensors and host
 metadata and no parameters, so it is a plain class (not an
 ``nn.Module``). A signal built from a path or an array goes to the card
 unless it is given ``device="cpu"``; the data loader decodes on the host
 and moves each collated batch to the card.
 """
 import copy
+import hashlib
 import pathlib
+import tempfile
 import warnings
 from collections import namedtuple
 
@@ -76,6 +79,11 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         self.stft_params = stft_params
         self.metadata = {"offset": offset, "duration": duration}
 
+    @property
+    def path_to_input_file(self):
+        """The file the signal was read from (alias of ``path_to_file``)."""
+        return self.path_to_file
+
     # -- constructors ---------------------------------------------------
 
     @classmethod
@@ -133,6 +141,27 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
                    sample_rate, **kwargs)
 
     @classmethod
+    def wave(cls, frequency, duration, sample_rate, num_channels=1, shape="sine", **kwargs):
+        """A ``"sine"``, ``"square"``, ``"sawtooth"`` or ``"triangle"`` wave of
+        ``frequency`` Hz and ``duration`` seconds, drawn on the host in
+        float64 and stored as float32 (``kwargs``, e.g. ``device``, go to the
+        constructor)."""
+        import scipy.signal as sps
+
+        t = np.linspace(0, duration, int(duration * sample_rate))
+        generators = {
+            "sawtooth": lambda ph: sps.sawtooth(ph, 0.5),
+            "square": sps.square,
+            "sine": np.sin,
+            # folding by abs() halves the period: drive it at half the phase
+            "triangle": lambda ph: 1.0 - 2.0 * np.abs(sps.sawtooth(ph / 2, 0.5)),
+        }
+        if shape not in generators:
+            raise ValueError(f"Invalid shape {shape}")
+        wave_data = generators[shape](2 * np.pi * frequency * t).astype(np.float32)
+        return cls(np.tile(wave_data[None, None, :], (1, num_channels, 1)), sample_rate, **kwargs)
+
+    @classmethod
     def batch(cls, audio_signals: list, pad_signals: bool = False,
               truncate_signals: bool = False, resample: bool = False, dim: int = 0):
         """Concatenate signals along ``dim``; mixed sample rates or lengths
@@ -188,6 +217,26 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         self.original_signal_length = self.signal_length
         return self.to(device)
 
+    def write(self, audio_path, subtype: str = "PCM_16"):
+        """Write the first item to ``audio_path`` (``io.save_audio``), warning
+        when samples beyond [-1, 1] are clipped, and remember the path."""
+        from ..io import save_audio
+
+        data = self.audio_data[0].detach().cpu().numpy()
+        if np.abs(data).max() > 1:
+            warnings.warn("Audio amplitude > 1 clipped when saving")
+        save_audio(str(audio_path), data, self.sample_rate, subtype=subtype)
+        self.path_to_file = audio_path
+        return self
+
+    def copy(self):
+        """Shallow copy: the same tensors and metadata objects."""
+        return copy.copy(self)
+
+    def deepcopy(self):
+        """Deep copy: tensors and metadata copied."""
+        return copy.deepcopy(self)
+
     def clone(self):
         """Copy holding the same (immutable by convention) tensors, the
         cached STFT included."""
@@ -198,6 +247,25 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         clone.metadata = copy.deepcopy(self.metadata)
         clone.original_signal_length = self.original_signal_length
         return clone
+
+    def detach(self):
+        """Cut the audio, the cached STFT and loudness from the autograd graph."""
+        if self._loudness is not None:
+            self._loudness = self._loudness.detach()
+        if self._stft_data is not None:
+            self._stft_data = self._stft_data.detach()
+        self._audio_data = self._audio_data.detach()
+        return self
+
+    def hash(self):
+        """SHA-256 of the first item written as a 16-bit WAV."""
+        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+            self.write(f.name)
+            h = hashlib.sha256()
+            with open(f.name, "rb") as g:
+                for block in iter(lambda: g.read(128 * 1024), b""):
+                    h.update(block)
+        return h.hexdigest()
 
     # -- signal ops -----------------------------------------------------
 
@@ -227,6 +295,41 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
             self._stft_data = self._stft_data.to(device)
         if self._loudness is not None:
             self._loudness = self._loudness.to(device)
+        return self
+
+    def cpu(self):
+        return self.to("cpu")
+
+    def cuda(self):
+        """Move to the card (raising without one)."""
+        return self.to(util.default_device())
+
+    def float(self):
+        """Cast the audio to float32."""
+        self.audio_data = self.audio_data.float()
+        return self
+
+    def numpy(self):
+        """The audio as a host numpy array, cut from the autograd graph."""
+        return self.audio_data.detach().cpu().numpy()
+
+    def quantize_wire(self, dtype: str = "int16"):
+        """Quantize the audio for the host-to-card copy: ``round(32768 x)``
+        clipped to int16, half the bytes of float32 at an error of at most
+        2**-16 (1.53e-5). Audio that is int16 already stays as it is, so a second call
+        changes nothing. The cached loudness is kept. Undone by
+        :meth:`dequantize_wire`."""
+        if dtype != "int16":
+            raise ValueError(f"unsupported wire dtype {dtype!r}")
+        x = self._audio_data
+        if x.dtype != torch.int16:
+            self._audio_data = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16)
+        return self
+
+    def dequantize_wire(self):
+        """Undo :meth:`quantize_wire`; float audio is left as it is."""
+        if self._audio_data.dtype == torch.int16:
+            self._audio_data = self._audio_data.float() / 32768.0
         return self
 
     def zero_pad(self, before: int, after: int):
@@ -333,6 +436,11 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         self._stft_params = STFTParams(**value)
         self._stft_data = None
 
+    def compute_stft_padding(self, window_length: int, hop_length: int, match_stride: bool):
+        """``(right_pad, pad)`` around the audio before the STFT."""
+        return _fft.compute_stft_padding(self.signal_length, window_length, hop_length,
+                                         match_stride)
+
     def _fill_stft_args(self, window_length, hop_length, window_type, match_stride,
                         padding_type=None):
         """Unspecified STFT arguments from ``self.stft_params``."""
@@ -387,6 +495,20 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         with strict_fp32():
             return basis @ magnitude
 
+    @staticmethod
+    def get_dct(n_mfcc, n_mels, norm="ortho", device=None):
+        """DCT-II matrix ``(n_mels, n_mfcc)`` (``ops.fft.dct_matrix``) on
+        ``device``, the CPU by default."""
+        return torch.from_numpy(_fft.dct_matrix(n_mfcc, n_mels, norm).copy()).to(device)
+
+    def mfcc(self, n_mfcc=40, n_mels=80, log_offset=1e-6, **kwargs):
+        """MFCCs ``(B, C, n_mfcc, T)``: the DCT of the log mel spectrogram
+        (``kwargs`` as :meth:`mel_spectrogram` takes them), in full fp32."""
+        log_mel = torch.log(self.mel_spectrogram(n_mels, **kwargs) + log_offset)
+        (dct_t,) = _fft._on_device(_fft._dct_design, (n_mfcc, n_mels, "ortho"), log_mel.device)
+        with strict_fp32():
+            return dct_t @ log_mel
+
     @property
     def magnitude(self):
         """``|STFT|``, computing the STFT first if none is cached; setting
@@ -434,10 +556,74 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         out.audio_data = out.audio_data - _value(other)
         return out
 
+    def __isub__(self, other):
+        self.audio_data = self.audio_data - _value(other)
+        return self
+
     def __mul__(self, other):
         out = self.clone()
         out.audio_data = out.audio_data * _value(other)
         return out
+
+    def __imul__(self, other):
+        self.audio_data = self.audio_data * _value(other)
+        return self
+
+    def __rmul__(self, other):
+        return self * other
+
+    # -- text -----------------------------------------------------------
+
+    def _info(self):
+        dur = f"{self.signal_duration:0.3f}" if self.signal_duration else "[unknown]"
+        return {
+            "duration": f"{dur} seconds",
+            "batch_size": self.batch_size,
+            "path": self.path_to_file or "path unknown",
+            "sample_rate": self.sample_rate,
+            "num_channels": self.num_channels or "[unknown]",
+            "audio_data.shape": tuple(self.audio_data.shape),
+            "stft_params": self.stft_params,
+            "device": self.device,
+        }
+
+    def markdown(self):
+        """The signal's description as a markdown table."""
+        rows = "".join(f"| {k} | {v} |\n" for k, v in self._info().items())
+        return "| Key | Value \n|---|--- \n" + rows
+
+    def __str__(self):
+        return "".join(f"{k}: {v}\n" for k, v in self._info().items())
+
+    def __rich__(self):
+        from rich.table import Table
+
+        table = Table(title=f"{self.__class__.__name__}")
+        table.add_column("Key", style="green")
+        table.add_column("Value", style="cyan")
+        for key, value in self._info().items():
+            table.add_row(key, str(value))
+        return table
+
+    # -- comparison -----------------------------------------------------
+
+    def __eq__(self, other):
+        """Whether every tensor the two signals hold (audio, cached STFT and
+        loudness) agrees within 1e-6; prints the largest difference of the
+        first that does not."""
+        for k, v in list(self.__dict__.items()):
+            if isinstance(v, torch.Tensor):
+                ov = getattr(other, "__dict__", {}).get(k)
+                if ov is None or not torch.allclose(v.detach().cpu(), ov.detach().cpu(),
+                                                    atol=1e-6):
+                    err = (float("inf") if ov is None
+                           else float((v.detach().cpu() - ov.detach().cpu()).abs().max()))
+                    print(f"Max abs error for {k}: {err}")
+                    return False
+        return True
+
+    def __ne__(self, other):
+        return not self == other
 
     # -- indexing and selection -----------------------------------------
 
@@ -479,6 +665,41 @@ class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
         out._stft_data = stft_data
         out.original_signal_length = self.original_signal_length
         return out
+
+    def __setitem__(self, key, value):
+        """Assign into the batch: a signal's audio (and its cached STFT and
+        loudness, where both sides hold them) or samples to the items
+        ``key`` selects. The tensors are replaced by updated copies, so
+        signals that share them (clones) are not changed."""
+        if isinstance(key, (list, np.generic)):
+            key = np.asarray(key)
+        if isinstance(key, np.ndarray):
+            key = torch.from_numpy(key)
+        if isinstance(key, torch.Tensor):
+            key = key.to(self.audio_data.device)
+
+        def assign(dst, src, reshape=False):
+            out = dst.clone()
+            src = torch.as_tensor(src, dtype=dst.dtype).to(dst.device)
+            out[key] = src.reshape(out[key].shape) if reshape else src
+            return out
+
+        if not isinstance(value, type(self)):
+            self._audio_data = assign(self.audio_data, value)
+            return
+        if (isinstance(key, torch.Tensor) and key.ndim == 0 and key.dtype == torch.bool
+                and bool(key)) or key is True:
+            if self.batch_size != 1:
+                raise ValueError(f"a 0-d True indexes a signal of batch 1, not {self.batch_size}")
+            self._audio_data = value.audio_data
+            self._loudness = value._loudness
+            self._stft_data = value._stft_data
+            return
+        self._audio_data = assign(self.audio_data, value.audio_data, reshape=True)
+        if self._loudness is not None and value._loudness is not None:
+            self._loudness = assign(self._loudness, value._loudness, reshape=True)
+        if self._stft_data is not None and value._stft_data is not None:
+            self._stft_data = assign(self._stft_data, value._stft_data, reshape=True)
 
     @classmethod
     def where(cls, mask, if_true: "AudioSignal", if_false: "AudioSignal"):

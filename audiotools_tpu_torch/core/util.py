@@ -1,12 +1,17 @@
-"""Core utilities: seeding, source manifests, tensors and batch collation.
+"""Core utilities: seeding, source manifests, tensors, batch collation and
+staging, and the chord fixture.
 
-Counterpart of ``audiotools_tpu/core/util.py`` for the augmentation path.
-Randomness stays host-side numpy (``RandomState``) with the JAX package's
-draw order, so both packages draw identical parameters for a batch.
+Counterpart of ``audiotools_tpu/core/util.py`` without its plotting and
+the TPU's mask sentinel. Randomness stays host-side numpy
+(``RandomState``) with the JAX package's draw order, so both packages draw
+identical parameters for a batch.
 """
 import csv
+import math
 import numbers
 import os
+import random
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
@@ -85,6 +90,19 @@ def ensure_tensor(x, ndim: int = None, batch_size: int = None, device=None):
     return x
 
 
+def hz_to_bin(hz, n_fft: int, sample_rate: int):
+    """The closest of ``2 + n_fft // 2`` bins spaced evenly from 0 to Nyquist
+    (the original library's grid) for each frequency in Hz, clipped at
+    Nyquist; a tensor of ``hz``'s shape on its device."""
+    from ._dsp import _grid
+
+    hz = torch.as_tensor(hz, dtype=torch.float32)
+    shape = hz.shape
+    hz = torch.clamp(hz.reshape(-1), max=sample_rate / 2)
+    freqs = torch.from_numpy(_grid(sample_rate / 2, 2 + n_fft // 2)[0]).to(hz.device)
+    return torch.abs(hz[None, :] - freqs[:, None]).argmin(dim=0).reshape(shape)
+
+
 def random_state(seed):
     """``None`` -> numpy's global state; an int -> a fresh
     ``RandomState``; an existing state passes through."""
@@ -95,6 +113,14 @@ def random_state(seed):
     if isinstance(seed, (numbers.Integral, np.integer)):
         return np.random.RandomState(seed)
     raise ValueError(f"{seed!r} cannot seed a numpy.random.RandomState")
+
+
+def seed(random_seed):
+    """Seed Python's ``random``, numpy's global state and torch (its CPU
+    and CUDA generators)."""
+    np.random.seed(random_seed)
+    random.seed(random_seed)
+    torch.manual_seed(random_seed)
 
 
 def sample_from_dist(dist_tuple: tuple, state: np.random.RandomState = None):
@@ -165,6 +191,17 @@ def choose_from_list_of_lists(state: np.random.RandomState, list_of_lists, p=Non
     return list_of_lists[source_idx][item_idx], source_idx, item_idx
 
 
+@contextmanager
+def chdir(newdir):
+    """Work in ``newdir`` inside the block, and return on the way out."""
+    curdir = os.getcwd()
+    try:
+        os.chdir(newdir)
+        yield
+    finally:
+        os.chdir(curdir)
+
+
 def _default_collate(values):
     """Stack one column of per-item values."""
     v0 = values[0]
@@ -181,20 +218,53 @@ def _default_collate(values):
     return values
 
 
-def collate(list_of_dicts: list):
+def collate(list_of_dicts: list, n_splits: int = None):
     """Collate item dicts key by key: AudioSignals into one batched signal
-    (zero-padded to the longest), other values stacked."""
+    (zero-padded to the longest), other values stacked. With ``n_splits``,
+    a list of that many sub-batches (the last may be shorter)."""
     from .signal import AudioSignal
 
-    flat_items = [flatten(d) for d in list_of_dicts]
-    merged = {}
-    for key in flat_items[0]:
-        column = [d[key] for d in flat_items]
-        if all(isinstance(s, AudioSignal) for s in column):
-            merged[key] = AudioSignal.batch(column, pad_signals=True)
-        else:
-            merged[key] = _default_collate(column)
-    return unflatten(merged)
+    def collate_chunk(items):
+        flat_items = [flatten(d) for d in items]
+        merged = {}
+        for key in flat_items[0]:
+            column = [d[key] for d in flat_items]
+            if all(isinstance(s, AudioSignal) for s in column):
+                merged[key] = AudioSignal.batch(column, pad_signals=True)
+            else:
+                merged[key] = _default_collate(column)
+        return unflatten(merged)
+
+    if n_splits is None:
+        return collate_chunk(list_of_dicts)
+    per_split = int(math.ceil(len(list_of_dicts) / n_splits))
+    return [collate_chunk(list_of_dicts[i:i + per_split])
+            for i in range(0, len(list_of_dicts), per_split)]
+
+
+def _map_signals(batch, fn):
+    """``batch`` (dicts, lists and tuples, nested) with ``fn`` applied to
+    every AudioSignal in it."""
+    from .signal import AudioSignal
+
+    def walk(v):
+        if isinstance(v, AudioSignal):
+            return fn(v)
+        if isinstance(v, dict):
+            return {k: walk(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(walk(x) for x in v)
+        return v
+
+    return walk(batch)
+
+
+def dequantize_batch(batch):
+    """Undo the loader's int16 wire (``DataLoader(wire_dtype="int16")``) for
+    every AudioSignal in a nested batch, ``transform_args`` included (the
+    noise and impulse responses drawn by the transforms are signals too).
+    Returns a new structure of cloned signals; float audio passes as it is."""
+    return _map_signals(batch, lambda s: s.clone().dequantize_wire())
 
 
 def _to_device(v, device, pin: bool):
@@ -271,3 +341,57 @@ def from_numpy_tree(tree, device):
         return arr if arr.dtype.kind not in "fiu" else torch.from_numpy(arr.copy())
 
     return prepare_batch(walk(tree), device)
+
+
+_NOTE_OFFSETS = {"C": 0, "D": 2, "E": 4, "F": 5, "G": 7, "A": 9, "B": 11}
+
+
+def note_to_midi(note: str) -> int:
+    """MIDI number of a note name such as ``"C4"``, ``"F#2"`` or ``"Bb3"``."""
+    name, rest = note[0].upper(), note[1:]
+    accidental = 0
+    while rest and rest[0] in "#b!":
+        accidental += 1 if rest[0] == "#" else -1
+        rest = rest[1:]
+    return 12 * (int(rest) + 1) + _NOTE_OFFSETS[name] + accidental
+
+
+def midi_to_hz(midi: float) -> float:
+    return 440.0 * (2.0 ** ((midi - 69) / 12.0))
+
+
+def generate_chord_dataset(max_voices: int = 8, sample_rate: int = 44100, num_items: int = 5,
+                           duration: float = 1.0, min_note: str = "C2", max_note: str = "C6",
+                           output_dir: Path = "chords"):
+    """A toy multitrack dataset of sine chords: ``num_items`` tracks of 1 to
+    ``max_voices`` voices, each a sine at a random note of a random length
+    in ``[0.85 duration, duration]``, written as ``track_i/voice_v.wav``,
+    and one CSV per voice (``voice_v.csv``, with loudness) whose row ``i``
+    is track ``i``'s file or empty. Draws come from Python's ``random`` in
+    the JAX package's order, so a seeded run (:func:`seed`) writes the same
+    files."""
+    from .signal import AudioSignal
+    from ..data.preprocess import create_csv
+
+    midi_range = (note_to_midi(min_note), note_to_midi(max_note))
+    output_dir = Path(output_dir)
+    output_dir.mkdir(exist_ok=True)
+
+    def random_voice():
+        return AudioSignal.wave(frequency=midi_to_hz(random.randint(*midi_range)),
+                                duration=random.uniform(0.85 * duration, duration),
+                                sample_rate=sample_rate, shape="sine", device="cpu")
+
+    tracks = []
+    for idx in range(num_items):
+        voices = {f"voice_{v}": random_voice() for v in range(random.randint(1, max_voices))}
+        track_dir = output_dir / f"track_{idx}"
+        track_dir.mkdir(exist_ok=True)
+        for name, sig in voices.items():
+            sig.write(track_dir / f"{name}.wav")
+        tracks.append(voices)
+
+    for name in {name for track in tracks for name in track}:
+        column = [str(track[name].path_to_file) if name in track else "" for track in tracks]
+        create_csv(column, output_dir / f"{name}.csv", loudness=True)
+    return output_dir

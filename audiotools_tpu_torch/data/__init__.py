@@ -1,3 +1,4 @@
 from . import datasets
+from . import preprocess
 from . import transforms
 from .loader import DataLoader

@@ -8,6 +8,12 @@ thread: numeric arrays and signal audio are copied from pinned memory
 without blocking, on a side stream on CUDA, so the copy of batch N+1
 overlaps the consumer's work on batch N. The background thread stops
 when the consumer stops iterating, including after an early ``break``.
+
+With ``wire_dtype="int16"``, the audio of every AudioSignal in a batch
+(those in lists, tuples and ``transform_args`` too) crosses to the card as
+int16 (``AudioSignal.quantize_wire``: half the bytes, error at most
+2**-16); the consumer restores it there with ``dequantize_wire`` or
+``util.dequantize_batch``.
 """
 import queue
 import threading
@@ -39,40 +45,73 @@ def _tensors(tree):
         yield tree
 
 
+def _wire_quantize(batch, wire_dtype):
+    """Quantize, in place, the audio of every AudioSignal in a freshly
+    collated batch (nested dicts, lists and tuples)."""
+    return util._map_signals(batch, lambda s: s.quantize_wire(wire_dtype))
+
+
 class DataLoader:
     """Batched, prefetching loader over a map-style dataset.
 
     Parameters
     ----------
     dataset : AudioDataset
-        Defines ``__getitem__`` and ``__len__``; items are dicts, collated
-        by ``util.collate``.
+        Defines ``__getitem__`` and ``__len__``; items are dicts.
     batch_size : int
     num_workers : int
         Threads building items concurrently (0: in the consumer's thread).
+    sampler : iterable, optional
+        The indices to load, in order (e.g. ``ResumableSequentialSampler``);
+        by default ``range(len(dataset))``.
+    collate_fn : callable, optional
+        Items to a batch; by default ``dataset.collate`` where the dataset
+        has one, else ``util.collate``.
+    drop_last : bool
+        Drop a last batch shorter than ``batch_size``.
     prefetch_batches : int
         Batches kept ready ahead of the consumer.
     device : optional
         Stage every batch onto this device (``util.prepare_batch``); by
         default the card (raising when there is none). ``"cpu"`` keeps the
         batches on the host.
+    wire_dtype : str, optional
+        ``"int16"`` stages the audio as int16 (module docstring).
     """
 
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 0,
-                 prefetch_batches: int = 2, device=None):
+    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 0, sampler=None,
+                 collate_fn=None, drop_last: bool = False, prefetch_batches: int = 2,
+                 device=None, wire_dtype: str = None):
+        if wire_dtype not in (None, "int16"):
+            raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.sampler = sampler
+        self.collate_fn = collate_fn or getattr(dataset, "collate", util.collate)
+        self.drop_last = drop_last
         self.prefetch_batches = prefetch_batches
         self.device = torch.device(device) if device is not None else util.default_device()
+        self.wire_dtype = wire_dtype
 
     def _index_batches(self):
-        n = len(self.dataset)
-        for start in range(0, n, self.batch_size):
-            yield list(range(start, min(start + self.batch_size, n)))
+        indices = self.sampler if self.sampler is not None else range(len(self.dataset))
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _collate(self, items):
+        batch = self.collate_fn(items)
+        return _wire_quantize(batch, self.wire_dtype) if self.wire_dtype else batch
 
     def _stage(self, batch, stream):
         """Copy ``batch`` to the device; returns it with the CUDA event that
@@ -99,7 +138,7 @@ class DataLoader:
     def __iter__(self):
         if self.num_workers <= 0:
             for idx_batch in self._index_batches():
-                batch = util.collate([self.dataset[i] for i in idx_batch])
+                batch = self._collate([self.dataset[i] for i in idx_batch])
                 yield self._ready(*self._stage(batch, None))
             return
 
@@ -122,7 +161,7 @@ class DataLoader:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                     for idx_batch in self._index_batches():
                         items = list(pool.map(self.dataset.__getitem__, idx_batch))
-                        if not put(self._stage(util.collate(items), stream)):
+                        if not put(self._stage(self._collate(items), stream)):
                             return
             except Exception as e:  # handed to the consumer, which raises it
                 put((e, None))

@@ -88,8 +88,8 @@ def _decode(raw: bytes, tag: int, bits: int) -> np.ndarray:
     raise ValueError(f"unsupported WAV encoding: tag 0x{tag:04x}, {bits} bits")
 
 
-def read_wav(path, offset: float = 0.0, duration: float = None):
-    """Read ``(C, T)`` float32 audio in [-1, 1] and its sample rate,
+def read_wav(path, offset: float = 0.0, duration: float = None, dtype=np.float32):
+    """Read ``(C, T)`` audio in [-1, 1] as ``dtype`` and its sample rate,
     optionally ``duration`` seconds starting ``offset`` seconds in."""
     with open(path, "rb") as f:
         info = _parse_header(f)
@@ -105,7 +105,8 @@ def read_wav(path, offset: float = 0.0, duration: float = None):
         raw = f.read(max(count, 0) * frame_bytes)
     n = len(raw) // frame_bytes
     data = _decode(raw[: n * frame_bytes], info.format_tag, info.bits_per_sample)
-    return np.ascontiguousarray(data.reshape(n, info.num_channels).T), info.sample_rate
+    data = data.reshape(n, info.num_channels).T
+    return np.ascontiguousarray(data.astype(dtype, copy=False)), info.sample_rate
 
 
 def write_wav(path, data: np.ndarray, sample_rate: int, subtype: str = "PCM_16"):

@@ -24,11 +24,14 @@ from ._fp32 import strict_fp32
 __all__ = [
     "get_window",
     "compute_stft_padding",
+    "num_frames",
     "default_win_length",
     "stft",
     "istft",
     "mel_filters",
     "mel_spectrogram",
+    "dct_matrix",
+    "mfcc",
     "log_magnitude",
 ]
 
@@ -62,6 +65,14 @@ def compute_stft_padding(length: int, window_length: int, hop_length: int,
         raise ValueError("match_stride assumes hop_length == window_length // 4")
     right_pad = math.ceil(length / hop_length) * hop_length - length
     return right_pad, (window_length - hop_length) // 2
+
+
+def num_frames(length: int, window_length: int, hop_length: int,
+               match_stride: bool = False) -> int:
+    """Number of STFT frames of a signal of ``length`` samples."""
+    right_pad, pad = compute_stft_padding(length, window_length, hop_length, match_stride)
+    nt = 1 + (length + 2 * pad + right_pad) // hop_length
+    return nt - 4 if match_stride else nt
 
 
 def _frame(x: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
@@ -349,6 +360,39 @@ def mel_spectrogram(audio: torch.Tensor, sample_rate: int, n_mels: int = 80,
     )
     with strict_fp32():
         return basis @ spec.abs()
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n_mfcc: int, n_mels: int, norm: str = "ortho") -> np.ndarray:
+    """DCT-II matrix ``(n_mels, n_mfcc)`` float32, designed in float64 on
+    the host (``torchaudio.functional.create_dct``'s matrix)."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)[:, None]
+    dct = np.cos(np.pi / n_mels * (n + 0.5) * k)  # (n_mfcc, n_mels)
+    if norm is None:
+        dct *= 2.0
+    else:
+        if norm != "ortho":
+            raise ValueError(f"norm must be 'ortho' or None, got {norm!r}")
+        dct[0] *= 1.0 / np.sqrt(2.0)
+        dct *= np.sqrt(2.0 / n_mels)
+    return dct.T.astype(np.float32)
+
+
+def _dct_design(n_mfcc: int, n_mels: int, norm: str):
+    """The DCT as it multiplies from the left, ``(n_mfcc, n_mels)``."""
+    return (np.ascontiguousarray(dct_matrix(n_mfcc, n_mels, norm).T),)
+
+
+def mfcc(audio: torch.Tensor, sample_rate: int, n_mfcc: int = 40, n_mels: int = 80,
+         log_offset: float = 1e-6, **kwargs) -> torch.Tensor:
+    """MFCCs ``(..., n_mfcc, n_frames)``: the DCT of ``log(mel +
+    log_offset)`` (``kwargs`` as :func:`mel_spectrogram` takes them), in
+    full fp32."""
+    log_mel = torch.log(mel_spectrogram(audio, sample_rate, n_mels=n_mels, **kwargs) + log_offset)
+    (dct_t,) = _on_device(_dct_design, (n_mfcc, n_mels, "ortho"), log_mel.device)
+    with strict_fp32():
+        return dct_t @ log_mel
 
 
 def log_magnitude(magnitude: torch.Tensor, ref_value: float = 1.0, amin: float = 1e-5,

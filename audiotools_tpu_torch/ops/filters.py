@@ -1,13 +1,14 @@
-"""FIR/IIR filtering on tensors: the mel-band graphic equalizer, the
-windowed-sinc low- and high-pass, pre-emphasis, causal and overlap-save
-FFT convolution, truncated biquad FIRs and the exact blocked IIR cascade.
+"""FIR/IIR filtering on tensors: the mel-band split and graphic
+equalizer, the windowed-sinc low- and high-pass, pre-emphasis, valid,
+causal and overlap-save FFT convolution, exact biquads, truncated biquad
+FIRs and the exact blocked IIR cascade.
 
-Counterpart of ``audiotools_tpu/ops/filters.py`` for the augmentation
-path. The equalizer collapses its band-split into one per-item FIR and
-runs it through kernel A (``hopper_kernels.fir_causal_batch``); the sinc
-filters convolve by ``torch.fft`` in fp32; the IIR cascade runs by block
-state-space lifting: per-block Toeplitz matmuls in fp32 plus a sequential
-recurrence over block states.
+Counterpart of ``audiotools_tpu/ops/filters.py``. The equalizer collapses
+its band-split into one per-item FIR and runs it through kernel A
+(``hopper_kernels.fir_causal_batch``); the band split and the sinc filters
+convolve by ``torch.fft`` in fp32; biquads and the IIR cascade run by
+block state-space lifting: per-block Toeplitz matmuls in fp32 plus a
+sequential recurrence over block states.
 """
 import functools
 import math
@@ -20,7 +21,9 @@ from . import hopper_kernels
 from ._fp32 import strict_fp32
 
 __all__ = [
+    "fft_conv1d",
     "mel_band_cutoffs",
+    "split_bands",
     "equalizer",
     "lowpass_kernel",
     "low_pass",
@@ -28,9 +31,13 @@ __all__ = [
     "overlap_save_valid",
     "preemphasis",
     "causal_fft_conv1d",
+    "biquad",
+    "biquad_cascade",
     "fir_from_biquad",
     "iir_cascade_blocked",
 ]
+
+CONV_METHODS = (None, "pallas", "pallas_interpret", "fft")
 
 
 def _next_pow2(n: int) -> int:
@@ -67,6 +74,17 @@ def _split_band_kernels(sample_rate: int, n_bands: int, zeros: int = 8):
 @functools.lru_cache(maxsize=32)
 def _split_band_tensor(sample_rate: int, n_bands: int, zeros: int, device: torch.device):
     return torch.from_numpy(_split_band_kernels(sample_rate, n_bands, zeros)[0]).to(device)
+
+
+def fft_conv1d(x: torch.Tensor, kernels) -> torch.Tensor:
+    """Valid-mode correlation (``conv1d``'s convention) of ``(..., T)``
+    signals with ``(K, L)`` kernels by fp32 FFTs: ``(..., K, T - L + 1)``."""
+    kernels = torch.as_tensor(kernels, device=x.device)
+    T, L = x.shape[-1], kernels.shape[-1]
+    n = _next_pow2(T)
+    X = torch.fft.rfft(x, n=n)
+    H = torch.fft.rfft(kernels.flip(-1), n=n)
+    return torch.fft.irfft(X[..., None, :] * H, n=n)[..., L - 1 : T]
 
 
 def _edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -184,17 +202,50 @@ def preemphasis(audio: torch.Tensor, coef: float = 0.85) -> torch.Tensor:
     return F.pad(audio, (1, 0))[..., :-1] - coef * audio
 
 
-def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8) -> torch.Tensor:
+def split_bands(audio: torch.Tensor, sample_rate: int, n_bands: int, zeros: int = 8,
+                block_size="auto") -> torch.Tensor:
+    """Split ``(B, C, T)`` audio into ``n_bands`` mel-spaced bands ``(B, C,
+    T, n_bands)``: low-passes at the mel-spaced cutoffs, band ``i`` the
+    difference of neighbouring low-passes and the last band the residual,
+    so the bands sum to the input. ``block_size``: ``"auto"`` convolves in
+    overlap-save blocks when they pay (``_auto_block``, the JAX package's
+    rule), ``None`` by one full-length FFT, an int in blocks of that size.
+    """
+    if n_bands < 1:
+        raise ValueError("n_bands must be >= 1")
+    if n_bands == 1:
+        return audio[..., None]
+    half = _split_band_kernels(sample_rate, n_bands, zeros)[1]
+    kernels = _split_band_tensor(sample_rate, n_bands, zeros, audio.device)
+    x = _edge_pad(audio, half)
+    if block_size == "auto":
+        block_size = _auto_block(2 * half, 32, 16384, 65536)
+    if block_size is not None and block_size > 2 * (2 * half):
+        lows = overlap_save_valid(x[..., None, :], kernels, block_size)
+    else:
+        lows = fft_conv1d(x, kernels)
+    lows = lows.movedim(-2, 0)  # (n_bands - 1, B, C, T)
+    bands = [lows[0]] + [lows[i] - lows[i - 1] for i in range(1, n_bands - 1)]
+    return torch.stack(bands + [audio - lows[-1]], dim=-1)
+
+
+def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8,
+              conv_method: str = None) -> torch.Tensor:
     """Mel-spaced graphic EQ of ``(B, C, T)`` audio: weight each band by
     ``10 ** db`` (``db``: ``(n_bands,)``, ``(1, n_bands)`` or ``(B,
     n_bands)``) and sum.
 
     With bands ``b_0 = lp_0``, ``b_i = lp_i - lp_{i-1}``, ``b_{n-1} = x -
     lp_{n-2}``, the weighted sum telescopes to ``w_{n-1} x + x * sum_i (w_i
-    - w_{i+1}) k_i``: one per-item FIR. Kernels of at most
-    ``hopper_kernels.MAX_TAPS`` taps go through kernel A (its plain version
-    for CPU tensors); longer ones through an FFT convolution.
+    - w_{i+1}) k_i``: one per-item FIR. ``conv_method`` (the JAX package's
+    names): ``"pallas"`` runs it through kernel A (its plain version for a
+    CPU tensor), ``"pallas_interpret"`` through kernel A's plain version,
+    ``"fft"`` by FFT convolution (overlap-save where it pays); ``None``
+    takes kernel A. A FIR longer than ``hopper_kernels.MAX_TAPS_BATCH``
+    taps always goes by FFT.
     """
+    if conv_method not in CONV_METHODS:
+        raise ValueError(f"conv_method must be one of {CONV_METHODS}, got {conv_method!r}")
     db = torch.as_tensor(db, dtype=torch.float32, device=audio.device)
     if db.ndim == 1:
         db = db[None, :]
@@ -209,19 +260,25 @@ def equalizer(audio: torch.Tensor, db, sample_rate: int, zeros: int = 8) -> torc
     x = _edge_pad(audio, half)
     L = 2 * half + 1
     T = audio.shape[-1]
-    if L <= hopper_kernels.MAX_TAPS_BATCH:
+    if conv_method != "fft" and L <= hopper_kernels.MAX_TAPS_BATCH:
         # full-convolution index t + L - 1 is the causal conv of the padded
         # signal with the reversed kernel at time t + L - 1
+        fir = (hopper_kernels.fir_causal_batch_plain if conv_method == "pallas_interpret"
+               else hopper_kernels.fir_causal_batch)
         B_, C_, Tp = x.shape
         g = combined.flip(-1)
         if g.shape[0] == 1 and B_ > 1:  # one curve for the whole batch
             g = g.expand(B_, -1)
         if C_ > 1:
             g = g.repeat_interleave(C_, dim=0)
-        y = hopper_kernels.fir_causal_batch(x.reshape(B_ * C_, Tp), g.contiguous())
+        y = fir(x.reshape(B_ * C_, Tp), g.contiguous())
         y = y.reshape(B_, C_, Tp)[..., L - 1 :]
     else:
-        y = _fft_conv_valid(x, combined)
+        block = _auto_block(L - 1, 8, 4096, 32768)
+        if block is not None:
+            y = overlap_save_valid(x, combined[:, None, :], block)
+        else:
+            y = _fft_conv_valid(x, combined)
     return weights[:, -1, None, None] * audio + y[..., :T]
 
 
@@ -255,6 +312,24 @@ def _causal_overlap_save(x: torch.Tensor, kernel: torch.Tensor, nfft: int) -> to
     Y = torch.fft.rfft(blocks, n=nfft) * torch.fft.rfft(kernel, n=nfft)
     y = torch.fft.irfft(Y, n=nfft)[..., L - 1 :]  # each block's hop valid samples
     return y.reshape(xf.shape[0], -1)[:, :T].reshape(x.shape)
+
+
+def biquad(x: torch.Tensor, b, a) -> torch.Tensor:
+    """Exact biquad over the last axis of ``x``: ``b`` and ``a`` are 3
+    host coefficients (normalized by ``a[0]``) of a stable filter.
+    :func:`biquad_cascade` of one stage."""
+    return biquad_cascade(x, [(b, a, 1.0)])
+
+
+def biquad_cascade(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """The ``(b, a, gain)`` biquad stages applied in turn, as one
+    :func:`iir_cascade_blocked` of the whole cascade run in float64 and
+    returned in ``x``'s dtype. For poles near the unit circle (the
+    K-weighting high-pass) a log-depth scan over the 2 x 2 state recurrence
+    misses a float64 ``lfilter`` by 4e-3 in fp32, and the blocked form's
+    fp32 products by ~5e-5 of the level, which the card and the CPU then
+    round differently; in float64 the products add no error of their own."""
+    return iir_cascade_blocked(x.double(), coeffs).to(x.dtype)
 
 
 def fir_from_biquad(b, a, n_taps: int) -> np.ndarray:
@@ -329,9 +404,11 @@ def _blocked_iir_operators(stages_key: tuple, block: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _iir_operators_on(stages_key: tuple, block: int, device: torch.device):
-    """Transposed device copies ``(Phi_x^T, Phi_s^T, Psi_x^T, (A^L)^T)``."""
-    return tuple(torch.from_numpy(m.T.copy()).to(device)
+def _iir_operators_on(stages_key: tuple, block: int, device: torch.device,
+                      dtype: torch.dtype = torch.float32):
+    """Transposed device copies ``(Phi_x^T, Phi_s^T, Psi_x^T, (A^L)^T)`` in
+    ``dtype``."""
+    return tuple(torch.from_numpy(m.T.copy()).to(device=device, dtype=dtype)
                  for m in _blocked_iir_operators(stages_key, block))
 
 
@@ -346,7 +423,7 @@ def iir_cascade_blocked(x: torch.Tensor, stages, block: int = 512) -> torch.Tens
         (tuple(float(v) for v in b), tuple(float(v) for v in a), float(g))
         for b, a, g in stages
     )
-    phi_x_t, phi_s_t, psi_x_t, a_l_t = _iir_operators_on(stages_key, block, x.device)
+    phi_x_t, phi_s_t, psi_x_t, a_l_t = _iir_operators_on(stages_key, block, x.device, x.dtype)
     T = x.shape[-1]
     batch_shape = x.shape[:-1]
     xf = F.pad(x.reshape(-1, T), (0, -T % block))

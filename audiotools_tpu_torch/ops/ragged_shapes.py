@@ -12,7 +12,10 @@ from .stretch import _pv_indices
 # outputs a block: rows shorter than a tile or not a multiple of it, taps
 # not a multiple of the chunk, one row, and each kernel's tap limit.
 FIR_BATCH = [(1, 100, 1), (1, 3, 5), (3, 4097, 17), (2, 8193, 15), (2, 8193, 16),
-             (1, 4095, 2048), (5, 777, 2048), (4, 4096, 33)]
+             (1, 4095, 2048), (5, 777, 2048), (4, 4096, 33),
+             # the multitrack path's EQs (chip_smoke.py): 64 clips of 5 s time-
+             # stretched by 1.25 and 0.8 (176,400 and 275,625 samples), 6 bands
+             (64, 176_400 + 640, 641), (64, 275_625 + 640, 641)]
 FIR_SHARED = [(1, 100, 1), (1, 3, 5), (3, 4097, 17), (2, 8193, 15), (5, 4099, 31),
               (4, 4096, 33), (130, 2048, 33), (1, 12345, 8191), (2, 9000, 8192)]
 
@@ -35,6 +38,12 @@ SYNTHESIS = [(1, 3, 2048, 2048), (2, 50, 1024, 512), (3, 41, 1536, 512), (3, 41,
 PV = [((2, 1025, 20), 2 ** (-2 / 12)), ((1, 1, 7), 0.77), ((3, 1, 3), 1.31), ((2, 1, 65, 37), 2.0),
       ((1, 300, 19), 1.31), ((4, 33, 50), 0.77), ((1, 1025, 3), 2 ** (-2 / 12)),
       ((33, 1025, 10), 1.31), ((33, 1025, 30), 0.77), ((2, 7, 40), None), ((1, 129, 5), None)]
+
+# Kernel B at the multitrack path's time stretches (chip_smoke.py): 64 clips
+# of 5 s at 44.1 kHz, 431 frames of 1025 bins (65,600 rows, 128 blocks and a
+# ragged one), stretched by 1.25 and 0.8 to 345 and 539 steps, neither a
+# multiple of the prefetch depth: (spectrum shape, rate).
+STRETCH = [((64, 1, 1025, 431), 1.25), ((64, 1, 1025, 431), 0.8)]
 
 # Kernel D: (..., n) planes. Its launch (``hopper_kernels.rotation_plan``)
 # takes 128 rows a block and 32-step tiles, copied 16 bytes at a time when

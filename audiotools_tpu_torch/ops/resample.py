@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ._fp32 import strict_fp32
 
-__all__ = ["resample_kernels", "resample"]
+__all__ = ["resample_kernels", "polyphase_conv_diff", "resample"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +65,28 @@ def _bank(old: int, new: int, zeros: int, rolloff: float, device: torch.device):
     return torch.from_numpy(kernels)[:, None, :].to(device)  # (new, 1, W)
 
 
+@functools.lru_cache(maxsize=256)
+def polyphase_conv_diff(old: int, new: int, zeros: int, rolloff: float, Tp: int, out_len: int):
+    """The strided polyphase convolution on an already padded ``(B, Tp)``
+    input, as a function ``(B, Tp) -> (B, out_len)``: one stride-``old``
+    ``conv1d`` against the bank in full fp32, its ``new`` output channels
+    interleaved into the output phases. Its gradient is autograd's (the
+    transposed conv); padding stays outside, so its own gradient
+    composes."""
+    kernels, _ = resample_kernels(old, new, zeros, rolloff)
+    P = (Tp - kernels.shape[-1]) // old + 1
+    if not 0 < out_len <= P * new:
+        raise ValueError(f"out_len {out_len} outside (0, {P * new}]")
+
+    def f(xp: torch.Tensor) -> torch.Tensor:
+        with strict_fp32():
+            y = F.conv1d(xp[:, None, :], _bank(old, new, zeros, rolloff, xp.device), stride=old)
+        # interleave phases: out[p * new + i] = y[:, i, p]
+        return y.transpose(1, 2).reshape(xp.shape[0], -1)[:, :out_len]
+
+    return f
+
+
 def resample(audio, old_sr: int, new_sr: int, zeros: int = 24, rolloff: float = 0.945):
     """Resample ``(..., T)`` audio to ``int(T * new_sr / old_sr)`` samples.
 
@@ -83,11 +105,7 @@ def resample(audio, old_sr: int, new_sr: int, zeros: int = 24, rolloff: float = 
 
     T = audio.shape[-1]
     batch_shape = audio.shape[:-1]
-    x = audio.reshape(-1, 1, T).float()
-    xp = F.pad(x, (width, width + old), mode="replicate")
-    with strict_fp32():
-        y = F.conv1d(xp, _bank(old, new, int(zeros), float(rolloff), x.device), stride=old)
-    # interleave phases: out[p * new + i] = y[:, i, p]
+    xp = F.pad(audio.reshape(-1, 1, T).float(), (width, width + old), mode="replicate")[:, 0]
     out_len = int(T * new / old)
-    y = y.transpose(1, 2).reshape(x.shape[0], -1)[:, :out_len]
+    y = polyphase_conv_diff(old, new, int(zeros), float(rolloff), xp.shape[-1], out_len)(xp)
     return y.reshape(batch_shape + (out_len,))

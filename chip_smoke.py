@@ -58,7 +58,19 @@ runs, on card 0:
    them, with CUDA events between): ms a batch per transform and for the
    chain, peak memory and kernel A's launches (its equalizers); then each
    transform on the card and on the CPU for the first 4 clips from the same
-   input, against stated tolerances.
+   input, against stated tolerances;
+11. multitrack: a seeded chord fixture (``util.generate_chord_dataset``, 64
+   tracks of up to 4 sine voices, 5 s) loaded as an aligned two-voice
+   ``AudioDataset`` through ``DataLoader(sampler=ResumableSequentialSampler,
+   drop_last=True, num_workers=8, wire_dtype="int16")``; on the card, the
+   voices dequantized and summed, then at time-stretch factors 1.25 and 0.8
+   (``pv_formulation="phasor_fused"``: kernel B) the equalizer with a
+   per-item curve (``conv_method="pallas"``: kernel A), ``split_bands(6)``,
+   the K-weighting ``biquad_cascade``, ``mfcc(40, 80)``, a ``collect_windows``
+   / ``overlap_and_add`` round trip, and two items written and read back:
+   ms and peak memory per stage; kernels B and A against their plain
+   versions at the path's shapes; the path on the card against the CPU for
+   the first 4 clips.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -152,6 +164,32 @@ TRAIN_TOL = {"latent_rel": 1e-4, "decoded_rel": 1e-4, "loss_rel": 1e-4,
 ZOO_RUNS = 6  # the first through Compose.transform, untimed
 ZOO_ABS = 1e-4
 ZOO_SHARE = 1e-3
+
+# multitrack: two aligned voices of the chord fixture, two stretch factors,
+# a 6-band EQ curve per item, and the chain's bounds card vs CPU, each stage
+# on both devices from the CPU's output of the stage before: audio (fp32 sums
+# in other orders) 1e-4 abs, the mel and the MFCCs' log-DCT 1e-4 of their
+# largest magnitude, and on each device the bands' sum equal to their input
+# within 1e-6 abs (the JAX package's partition-of-unity pin,
+# tests/parity/test_parity.py). The dequantized mix and the vocoder on one
+# spectrum (kernel B against its plain version on the CPU) must be equal
+# bit for bit; the STFT is held within 1e-5 of its largest magnitude
+# (2048-term fp32 sums in other orders). Two composites are reported, not
+# held, because the fixture makes them ill-conditioned (PERF.md, section 6):
+# the whole stretch (pure sines leave bins at fp32's rounding floor for
+# hundreds of frames, where the vocoder's phase is a random walk of
+# rounding in either formulation, and a voice's abrupt end puts energy into
+# them) and the whole MFCC (its log turns the two FFTs' rounding floors, in
+# the bands that pure tones and digital silence leave near the 1e-6 log
+# offset, into differences of order one)
+MT_VOICES = ("voice_0", "voice_1")
+MT_FACTORS = (1.25, 0.8)
+MT_BANDS = 6
+MT_MFCC = (40, 80)
+MT_WINDOW = (1.0, 0.5)  # seconds: window, hop
+MT_TOL = {"mix_abs": 0.0, "stft_rel": 1e-5, "vocoder_abs": 0.0, "istft_abs": 1e-4,
+          "eq_abs": 1e-4, "bands_abs": 1e-4, "bands_sum_abs": 1e-6, "weighted_abs": 1e-4,
+          "windows_abs": 1e-4, "mel_rel": 1e-4, "log_dct_rel": 1e-4}
 
 
 def fail(msg):
@@ -794,6 +832,298 @@ def phase_zoo(root, dev, card):
                           errors=errors)
 
 
+def make_multitrack_dataset(root, n_examples):
+    """Two voices of the chord fixture as one aligned AudioDataset."""
+    from audiotools_tpu_torch.data.datasets import AudioDataset, AudioLoader
+
+    loaders = {v: AudioLoader(sources=[str(root / f"{v}.csv")]) for v in MT_VOICES}
+    return AudioDataset(loaders, sample_rate=SR, n_examples=n_examples, duration=DURATION,
+                        aligned=True)
+
+
+def _mix_voices(batch):
+    """The voices of a batch staged with the int16 wire, dequantized and summed."""
+    mix = None
+    for voice in MT_VOICES:
+        signal = batch[voice]["signal"].clone().dequantize_wire()
+        mix = signal if mix is None else mix + signal
+    return mix
+
+
+def multitrack_path(batch, curve, out_dir, stage=lambda name: None):
+    """The multitrack path on a batch staged with the int16 wire: the voices
+    dequantized and summed; then at each factor the stretch (kernel B), the
+    EQ (kernel A), and from the EQ'd audio the band split, the K-weighting
+    cascade, the MFCCs, the window round trip and two items written (float
+    WAV) and read back. ``stage(name)`` is called after each stage."""
+    from audiotools_tpu_torch.io import read_wav
+    from audiotools_tpu_torch.ops import filters as PFL
+
+    mix = _mix_voices(batch)
+    stage("mix")
+    out = {}
+    for factor in MT_FACTORS:
+        signal = mix.clone().time_stretch(factor, pv_formulation="phasor_fused")
+        stretched = signal.audio_data
+        stage(f"time_stretch {factor:g}")
+        signal.equalizer(curve, conv_method="pallas")
+        stage(f"equalizer {factor:g}")
+        bands = signal.mel_filterbank(MT_BANDS)
+        stage(f"split_bands {factor:g}")
+        weighted = PFL.biquad_cascade(signal.audio_data, _k_weighting())
+        stage(f"biquad_cascade {factor:g}")
+        mfcc = signal.mfcc(*MT_MFCC)
+        stage(f"mfcc {factor:g}")
+        windows = signal.clone().collect_windows(*MT_WINDOW).overlap_and_add(MT_WINDOW[1])
+        stage(f"windows {factor:g}")
+        read = []
+        for i in range(2):
+            path = Path(out_dir) / f"multitrack_{factor:g}_{i}.wav"
+            signal[i].write(path, subtype="FLOAT")
+            read.append(read_wav(path)[0])
+        stage(f"save_read {factor:g}")
+        out[factor] = dict(stretched=stretched, eq=signal.audio_data, bands=bands,
+                           weighted=weighted, mfcc=mfcc, windows=windows.audio_data,
+                           read=np.stack(read))
+    return mix.audio_data, out
+
+
+def _k_weighting():
+    from audiotools_tpu_torch.ops import loudness as PL
+
+    return [(b, a, g) for (b, a), g in PL.design_filters(SR, "K-weighting")]
+
+
+def _multitrack_checks(mix, out):
+    """Shapes, finite values, the bands' partition of unity, the exact window
+    round trip and read-back of the path's run; returns the partition's
+    largest error and the EQ'd audio's peak."""
+    n = mix.shape[0]
+    worst_sum, peak = 0.0, 0.0
+    for factor, o in out.items():
+        tag = f"multitrack {factor:g}"
+        length = int(round(int(SR * DURATION) / factor))
+        eq = o["eq"]
+        expect(tuple(eq.shape) == (n, 1, length), f"{tag}: EQ shape {tuple(eq.shape)}")
+        expect(tuple(o["bands"].shape) == (n, 1, length, MT_BANDS),
+               f"{tag}: bands shape {tuple(o['bands'].shape)}")
+        expect(tuple(o["mfcc"].shape) == (n, 1, MT_MFCC[0], 1 + length // 512),
+               f"{tag}: mfcc shape {tuple(o['mfcc'].shape)}")
+        for name in ("stretched", "eq", "bands", "weighted", "mfcc", "windows"):
+            expect(bool(torch.isfinite(o[name]).all()), f"{tag}: non-finite {name}")
+        err = float((o["bands"].sum(-1) - eq).abs().max())
+        worst_sum, peak = max(worst_sum, err), max(peak, float(eq.abs().max()))
+        expect(err <= MT_TOL["bands_sum_abs"], f"{tag}: bands sum to their input within {err:.3e}")
+        expect(torch.equal(o["windows"], eq), f"{tag}: window round trip is not exact")
+        expect(np.array_equal(o["read"], eq[:2].cpu().numpy()),
+               f"{tag}: a written item did not read back as written")
+    return worst_sum, peak
+
+
+def phase_multitrack(root, dev, card):
+    """The multitrack path on the card: fixture, loader, 1 untimed and
+    N_ITER timed runs with CUDA events between the stages (plus one run
+    reading each stage's peak memory), kernels B and A against their plain
+    versions at the path's shapes, and the path card vs CPU. Launch counts
+    are set to 0 just before the untimed run and read just after the last
+    timed one."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.core import util
+    from audiotools_tpu_torch.data import DataLoader
+    from audiotools_tpu_torch.data.datasets import ResumableSequentialSampler
+    from audiotools_tpu_torch.data.loader import _wire_quantize
+    from audiotools_tpu_torch.io import read_wav
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import filters as PFL
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import stretch as PS
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    chords = root / "chords"
+    t0 = time.perf_counter()
+    util.seed(0)
+    util.generate_chord_dataset(max_voices=4, num_items=BATCH, duration=DURATION,
+                                sample_rate=SR, output_dir=chords)
+    fixture_s = time.perf_counter() - t0
+    ds = make_multitrack_dataset(chords, BATCH)
+    silent = sum(e["path"] == "none" for e in ds.loaders[MT_VOICES[1]].audio_lists[0])
+    loader = DataLoader(ds, batch_size=BATCH, sampler=ResumableSequentialSampler(ds),
+                        drop_last=True, num_workers=8, wire_dtype="int16")
+    t0 = time.perf_counter()
+    batch = next(iter(loader))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    wire = {v: (str(batch[v]["signal"].audio_data.dtype), batch[v]["signal"].device.type)
+            for v in MT_VOICES}
+    print(f"[multitrack] chord fixture ({BATCH} tracks, {silent} without {MT_VOICES[1]}): "
+          f"{fixture_s:.2f} s | first batch through DataLoader (8 workers, int16 wire, staged "
+          f"to the card): {first_s:.2f} s | wire {wire}")
+    expect(all(w == ("torch.int16", "cuda") for w in wire.values()), f"multitrack wire {wire}")
+    expect(len(loader) == 1 and batch["idx"].tolist() == list(range(BATCH)),
+           "multitrack: the sampler's batch is not items 0..63")
+    # as the Equalizer transform draws it (eq_amount 1): log10 gains in [-1, 0]
+    curve = torch.from_numpy(-np.random.RandomState(7).rand(BATCH, MT_BANDS)
+                             .astype(np.float32)).to(dev)
+
+    with tempfile.TemporaryDirectory(dir=root) as out_dir:
+        HK.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        peaks = {}
+
+        def read_peak(name):
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        multitrack_path(batch, curve, out_dir, read_peak)  # untimed, each stage's peak
+        names, stages = list(peaks), np.zeros(len(peaks))
+        t0 = time.perf_counter()
+        for _ in range(N_ITER):
+            marks = [torch.cuda.Event(enable_timing=True)]
+            marks[0].record()
+
+            def mark(name):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+
+            mix, out = multitrack_path(batch, curve, out_dir, mark)
+            torch.cuda.synchronize()
+            stages += [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        wall_ms = (time.perf_counter() - t0) * 1000 / N_ITER
+        launches = dict(HK.LAUNCHES)
+    stages /= N_ITER
+    ms = float(stages.sum())
+    print(f"[multitrack] {BATCH} x {DURATION:g} s @ {SR} Hz, factors {MT_FACTORS}: {ms:.3f} "
+          f"ms/batch (CUDA events, mean of {N_ITER} runs after one untimed; host wall "
+          f"{wall_ms:.3f} ms) | peak {max(peaks.values()) / 2**30:.3f} GiB | {card}")
+    print("[multitrack] stages (ms / peak GiB): " + ", ".join(
+        f"{n} {t:.3f} / {peaks[n] / 2**30:.3f}" for n, t in zip(names, stages)))
+    print(f"[multitrack] kernel launches ({N_ITER + 1} runs): {launches}")
+    for name in ("fir_causal_batch", "phase_vocoder_fused"):
+        expect(launches[name] >= (N_ITER + 1) * len(MT_FACTORS),
+               f"multitrack: kernel {name} was not launched at every factor: {launches}")
+    sum_card = _multitrack_checks(mix, out)
+
+    # kernel B at the two stretch shapes, on the path's own spectrum
+    z = PF.stft(mix.reshape(-1, mix.shape[-1]), 2048, 512, "hann", method="matmul")[:, None]
+    kernels = {"B": {}, "A": {}}
+    rows = int(np.prod(z.shape[:-1]))
+    for factor in MT_FACTORS:
+        i0, i1, frac = PS._pv_indices(z.shape[-1], factor)
+        abs_err, _, k_ms, plain_ms = compare_kernel(
+            "phase_vocoder_fused", lambda: HK.phase_vocoder_fused(z, i0, i1, frac),
+            lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac), 10, 2)
+        n = len(i0)
+        nbytes = 8.0 * rows * (z.shape[-1] + n) + 12.0 * n
+        yard = yardsticks(k_ms, 31.0 * rows * n, FP32_FLOPS, nbytes)
+        print(f"[multitrack kernel B] {tuple(z.shape)} -> {n} steps (factor {factor:g}): "
+              f"max_abs_err {abs_err:.3e} (must be 0) | kernel {k_ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
+              f"{yard['share_of_bound']:.1%})")
+        expect(abs_err == 0.0, f"kernel B differs from its plain version at factor {factor:g}")
+        kernels["B"][factor] = dict(abs_err=abs_err, ms=k_ms, plain_ms=plain_ms, **yard)
+
+    # kernel A: the path's EQ through the kernel and through its plain
+    # version, on the path's stretched audio; then timed at that shape
+    rng = np.random.RandomState(8)
+    for factor in MT_FACTORS:
+        stretched = out[factor]["stretched"]
+        eq = {m: AudioSignal(stretched, SR).equalizer(curve, conv_method=m).audio_data
+              for m in ("pallas", "pallas_interpret")}
+        rel = float((eq["pallas"] - eq["pallas_interpret"]).abs().max()
+                    / eq["pallas_interpret"].abs().max())
+        rows_a, T_a, L = BATCH, stretched.shape[-1] + 640, 641
+        x = torch.from_numpy(rng.randn(rows_a, T_a).astype(np.float32)).to(dev)
+        h = torch.from_numpy((rng.randn(rows_a, L) * 0.05).astype(np.float32)).to(dev)
+        abs_err, rel_err, k_ms, plain_ms = compare_kernel(
+            "fir_causal_batch", lambda: HK.fir_causal_batch(x, h),
+            lambda: HK.fir_causal_batch_plain(x, h), 10, 3)
+        xpad, hflip = F.pad(x, (L - 1, 0))[None], h.flip(-1)[:, None, :].contiguous()
+        with strict_fp32():
+            yard = yardsticks(k_ms, 2.0 * rows_a * T_a * L, FP32_FLOPS,
+                              4.0 * rows_a * (2 * T_a + L), "F.conv1d (cuDNN, TF32 off)",
+                              lambda: F.conv1d(xpad, hflip, groups=rows_a))
+        del xpad, hflip
+        print(f"[multitrack kernel A] ({rows_a}, {T_a}) x {L} taps (factor {factor:g}): the "
+              f"path's EQ through A vs its plain version rel {rel:.3e}; random inputs rel "
+              f"{rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {k_ms:.4f} ms | plain {plain_ms:.4f} "
+              f"ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
+              f"{yard['share_of_bound']:.1%}) | {yard['library']} {yard['library_ms']:.4f} ms")
+        expect(rel < KERNEL_RTOL and rel_err < KERNEL_RTOL,
+               f"kernel A disagrees with its plain version at factor {factor:g}")
+        kernels["A"][factor] = dict(abs_err=abs_err, ms=k_ms, plain_ms=plain_ms, path_rel=rel,
+                                    **yard)
+    del z, mix, out, batch
+
+    # the path on the card and on the CPU (plain versions) for N_CHECK clips,
+    # stage by stage: each stage on both devices from the CPU's output of the
+    # stage before, the stretch and the MFCCs in their parts (see MT_TOL)
+    errors = {}
+    items = _wire_quantize(util.collate([ds[i] for i in range(N_CHECK)]), "int16")
+    mix = {d: _mix_voices(util.prepare_batch(items, d)).audio_data for d in (dev, "cpu")}
+    x, check_curve = mix["cpu"], curve[:N_CHECK].cpu()
+    devices = (dev, "cpu")
+
+    def held(got, want, rel=False):
+        err = float((got.cpu() - want).abs().max())
+        return err / float(want.abs().max()) if rel else err
+
+    with tempfile.TemporaryDirectory(dir=root) as out_dir:
+        for factor in MT_FACTORS:
+            e = errors[factor] = {"mix_abs": held(mix[dev], x)}
+            whole = {d: AudioSignal(x.to(d), SR).time_stretch(
+                factor, pv_formulation="phasor_fused").audio_data for d in devices}
+            spec = {d: PF.stft(x.to(d), 2048, 512, "hann", method="matmul") for d in devices}
+            e["stft_rel"] = held(spec[dev], spec["cpu"], rel=True)
+            voc = {d: PS.phase_vocoder(spec["cpu"].to(d), factor, 512, 2048, "phasor_fused")
+                   for d in devices}
+            e["vocoder_abs"] = held(voc[dev], voc["cpu"])
+            length = int(round(x.shape[-1] / factor))
+            st = {d: PF.istft(voc["cpu"].to(d), 2048, 512, "hann", length=length,
+                              method="matmul") for d in devices}
+            e["istft_abs"] = held(st[dev], st["cpu"])
+            eq = {d: AudioSignal(st["cpu"].to(d), SR).equalizer(
+                check_curve.to(d), conv_method="pallas").audio_data for d in devices}
+            e["eq_abs"] = held(eq[dev], eq["cpu"])
+            src = {d: AudioSignal(eq["cpu"].to(d), SR) for d in devices}
+            bands = {d: src[d].mel_filterbank(MT_BANDS) for d in devices}
+            e["bands_abs"] = held(bands[dev], bands["cpu"])
+            e["bands_sum_abs"] = max(held(bands[d].sum(-1), eq["cpu"]) for d in devices)
+            weighted = {d: PFL.biquad_cascade(src[d].audio_data, _k_weighting()) for d in devices}
+            e["weighted_abs"] = held(weighted[dev], weighted["cpu"])
+            windows = {d: src[d].clone().collect_windows(*MT_WINDOW).overlap_and_add(
+                MT_WINDOW[1]).audio_data for d in devices}
+            e["windows_abs"] = held(windows[dev], windows["cpu"])
+            mel = {d: src[d].mel_spectrogram(MT_MFCC[1]) for d in devices}
+            e["mel_rel"] = held(mel[dev], mel["cpu"], rel=True)
+            with strict_fp32():
+                log_dct = {d: AudioSignal.get_dct(*MT_MFCC, device=d).T
+                           @ torch.log(mel["cpu"].to(d) + 1e-6) for d in devices}
+            e["log_dct_rel"] = held(log_dct[dev], log_dct["cpu"], rel=True)
+            mfcc = {d: src[d].mfcc(*MT_MFCC) for d in devices}
+            expect(torch.equal(mfcc["cpu"], log_dct["cpu"]), "mfcc is not the log-DCT of the mel")
+            for d in devices:
+                path = Path(out_dir) / f"check_{factor:g}_{torch.device(d).type}.wav"
+                src[d][0].write(path, subtype="FLOAT")
+                expect(np.array_equal(read_wav(path)[0], eq["cpu"][0].numpy()),
+                       f"multitrack ({factor:g}, {d}): a written item did not read back")
+            for k, v in e.items():
+                expect(v <= MT_TOL[k],
+                       f"multitrack card vs CPU ({factor:g}) {k} {v:.3e} > {MT_TOL[k]:g}")
+            # the composites, not held (MT_TOL)
+            e["time_stretch_whole_abs"] = held(whole[dev], whole["cpu"])
+            e["mfcc_whole_rel"] = held(mfcc[dev], mfcc["cpu"], rel=True)
+    print(f"[multitrack card vs cpu] {N_CHECK} clips, each stage from the CPU's input: " + "; ".join(
+        f"factor {f:g}: " + ", ".join(f"{k} {v:.3e}" + (f" (tol {MT_TOL[k]:g})" if k in MT_TOL
+                                                          else " (not held)")
+                                     for k, v in e.items()) for f, e in errors.items())
+        + f" | bands' sum vs input on the whole batch (input peak): {sum_card[0]:.3e} "
+        f"({sum_card[1]:.3f})")
+    return launches, dict(ms=ms, stages=dict(zip(names, stages.tolist())), peaks=peaks,
+                          first_s=first_s, errors=errors, kernels=kernels)
+
+
 def run_chain(ds, batch, synthesis_method="matmul_bf16", marks=None):
     """The main path on a staged batch; ``marks`` collects a CUDA event
     after each stage (chain, pitch shift, mel, loudness). The meter is the
@@ -1191,6 +1521,7 @@ def main():
         launches["pitch_grad"], _ = phase_pitch_grad(batch["signal"].audio_data)
         del batch
         launches["zoo"], _ = phase_zoo(root, dev, card)
+        launches["multitrack"], _ = phase_multitrack(root, dev, card)
         train_audio, train_launches, _ = phase_codec_training(root, dev, card)
         launches.update(train_launches)
         phase_training_card_vs_cpu(train_audio, dev)
@@ -1213,8 +1544,8 @@ def main():
                                       "library", "library_ms")}}
 
     kernels = [
-        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+zoo", a, "equalizer"),
-        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main", b, "path"),
+        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+zoo+multitrack", a, "equalizer"),
+        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main+multitrack", b, "path"),
         row("fir_causal", "fir_causal_batch.cu", 100, "parity", c, "meter"),
         # D has no caller in the library: its own path is its entry point
         row("rotation_cumprod", "rotation_cumprod.cu", 417, "rotation", d),

@@ -490,3 +490,79 @@ def test_clip_distortion_at_full_width_matches_cpu(cuda, channels):
     want = AudioSignal(x.clone(), 44100).clip_distortion(perc).audio_data
     assert torch.equal(got.cpu(), want)
     assert float(got.abs().max()) < float(x.abs().max())
+
+
+# -- the multitrack path's surface (time stretch, EQ routes, int16 wire) ------
+
+
+@pytest.mark.parametrize("shape,rate", RAGGED.STRETCH)
+def test_pv_kernel_at_the_stretch_shapes_bit_equal(cuda, shape, rate):
+    """Kernel B at ``time_stretch``'s factors 1.25 and 0.8 on 64 clips of
+    5 s, on a time-major spectrum read in place: the plain version's bits."""
+    rng = np.random.RandomState(int(rate * 100))
+    tm = shape[:-2] + shape[-1:] + shape[-2:-1]
+    z = torch.from_numpy((rng.randn(*tm) + 1j * rng.randn(*tm)).astype(np.complex64)).to(
+        cuda).transpose(-1, -2)
+    i0, i1, frac = PS._pv_indices(shape[-1], rate)
+    assert torch.equal(HK.phase_vocoder_fused(z, i0, i1, frac),
+                       HK.phase_vocoder_fused_plain(z, i0, i1, frac))
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.8])
+def test_time_stretch_fused_on_card_matches_cpu(cuda, factor):
+    """``AudioSignal.time_stretch(pv_formulation="phasor_fused")`` on the
+    card launches kernel B once; the vocoder on one spectrum gives the CPU's
+    bits; and the stretch of noise (no bin at the rounding floor) is within
+    the chain's 1e-4 of the CPU's."""
+    from audiotools_tpu_torch import AudioSignal
+
+    x = torch.from_numpy((np.random.RandomState(9).randn(2, 1, 44100) * 0.1).astype(np.float32))
+    before = HK.LAUNCHES["phase_vocoder_fused"]
+    got = AudioSignal(x.to(cuda), 44100).time_stretch(factor, pv_formulation="phasor_fused")
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["phase_vocoder_fused"] == before + 1
+    spec = PF.stft(x, 2048, 512, "hann", method="matmul")
+    on_card = PS.phase_vocoder(spec.to(cuda), factor, 512, 2048, "phasor_fused")
+    assert torch.equal(on_card.cpu(), PS.phase_vocoder(spec, factor, 512, 2048, "phasor_fused"))
+    cpu = AudioSignal(x, 44100).time_stretch(factor, pv_formulation="phasor_fused")
+    assert float((got.audio_data.cpu() - cpu.audio_data).abs().max()) < 1e-4
+
+
+def test_equalizer_pallas_on_card_matches_its_plain_version(cuda):
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy((rng.randn(4, 2, 30000) * 0.1).astype(np.float32)).to(cuda)
+    db = torch.from_numpy(-rng.rand(4, 6).astype(np.float32)).to(cuda)
+    before = HK.LAUNCHES["fir_causal_batch"]
+    got = PFL.equalizer(x, db, 44100, conv_method="pallas")
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["fir_causal_batch"] == before + 1
+    want = PFL.equalizer(x, db, 44100, conv_method="pallas_interpret")
+    assert HK.LAUNCHES["fir_causal_batch"] == before + 1
+    assert _rel_err(got, want) < KERNEL_RTOL
+    fft = PFL.equalizer(x, db, 44100, conv_method="fft")
+    assert float((fft - want).abs().max()) < 1e-5
+
+
+def test_loader_stages_an_int16_batch_on_the_card(cuda, tmp_path):
+    """One aligned multitrack batch: every signal crosses as int16 and
+    dequantizes on the card to the host's float batch within int16
+    rounding."""
+    from audiotools_tpu_torch.core import util
+    from audiotools_tpu_torch.data import DataLoader
+    from audiotools_tpu_torch.data.datasets import (AudioDataset, AudioLoader,
+                                                    ResumableSequentialSampler)
+
+    util.seed(1)
+    root = util.generate_chord_dataset(max_voices=3, num_items=4, duration=0.5,
+                                       output_dir=tmp_path / "chords")
+    loaders = {v: AudioLoader(sources=[str(root / f"{v}.csv")]) for v in ("voice_0", "voice_1")}
+    ds = AudioDataset(loaders, sample_rate=44100, n_examples=4, duration=0.5, aligned=True)
+    kw = dict(batch_size=4, sampler=ResumableSequentialSampler(ds), drop_last=True, num_workers=2)
+    batch = next(iter(DataLoader(ds, wire_dtype="int16", **kw)))
+    host = next(iter(DataLoader(ds, device="cpu", **kw)))
+    for voice in loaders:
+        signal = batch[voice]["signal"]
+        assert signal.audio_data.dtype == torch.int16 and signal.device.type == "cuda"
+        back = signal.clone().dequantize_wire().audio_data
+        assert back.device.type == "cuda"
+        assert float((back.cpu() - host[voice]["signal"].audio_data).abs().max()) <= 2.0 ** -16

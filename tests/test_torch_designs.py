@@ -86,6 +86,12 @@ def test_mel_filters(args):
     _equal(PF.mel_filters(*args), JF.mel_filters(*args))
 
 
+@pytest.mark.parametrize("n_mfcc,n_mels,norm", [(40, 80, "ortho"), (13, 40, "ortho"),
+                                                (20, 128, None), (1, 1, "ortho")])
+def test_dct_matrix(n_mfcc, n_mels, norm):
+    _equal(PF.dct_matrix(n_mfcc, n_mels, norm), JF.dct_matrix(n_mfcc, n_mels, norm))
+
+
 @pytest.mark.parametrize("T,rate", [(384, 2 ** (-2 / 12)), (61, 1.31), (100, 0.77), (5, 1.0)])
 def test_pv_indices(T, rate):
     _equal(PS._pv_indices(T, rate), JS._pv_indices(T, rate))
