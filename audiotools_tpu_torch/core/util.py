@@ -71,6 +71,14 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def as_device_tensor(x, dtype=torch.float32) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor: a tensor stays on its device, an array
+    or list goes to the card (:func:`default_device`)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=default_device())
+
+
 def ensure_tensor(x, ndim: int = None, batch_size: int = None, device=None):
     """Coerce ``x`` to a tensor (float64 becomes float32) with at least
     ``ndim`` dimensions (trailing axes added) and a leading ``batch_size``."""

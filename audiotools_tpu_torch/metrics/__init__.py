@@ -1,5 +1,6 @@
-"""Losses over signals and tensors: waveform distances and spectral
-losses (counterpart of ``audiotools_tpu/metrics/distance.py`` and
-``spectral.py``)."""
+"""Losses and quality measures over signals and tensors: waveform distances,
+spectral losses and STOI, PESQ and ViSQOL (counterpart of
+``audiotools_tpu/metrics``)."""
 from . import distance
+from . import quality
 from . import spectral

@@ -1,1 +1,2 @@
+from .base import BaseModel
 from .spectral_gate import SpectralGate

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ml.layers.base import BaseModel
 from ..ops._fp32 import strict_fp32
 
 __all__ = [
@@ -282,12 +283,13 @@ class ResidualVectorQuantize(nn.Module):
         return z_q
 
 
-class DAC(nn.Module):
+class DAC(BaseModel):
     """Descript-style audio codec (encoder, residual VQ, decoder).
 
     The defaults are the published 44.1 kHz configuration; scale
     ``encoder_dim`` and ``decoder_dim`` down for small runs. ``seed`` seeds
-    the initialization.
+    the initialization. ``BaseModel`` records the constructor arguments, so
+    ``save`` and ``load`` round-trip the configuration with the weights.
 
     >>> model = DAC().cuda()
     >>> out = model(audio)          # (B, 1, T) -> dict
@@ -301,6 +303,7 @@ class DAC(nn.Module):
                  seed: int = 0):
         super().__init__()
         self.encoder_rates, self.sample_rate = tuple(encoder_rates), sample_rate
+        self.n_codebooks, self.codebook_size = n_codebooks, codebook_size
         generator = torch.Generator().manual_seed(seed)
         self.encoder = Encoder(encoder_dim, self.encoder_rates, latent_dim, generator)
         self.quantizer = ResidualVectorQuantize(latent_dim, n_codebooks, codebook_size,

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's augmentation path on one CUDA card.
+"""Smoke run of the PyTorch port's paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -70,7 +70,22 @@ runs, on card 0:
    / ``overlap_and_add`` round trip, and two items written and read back:
    ms and peak memory per stage; kernels B and A against their plain
    versions at the path's shapes; the path on the card against the CPU for
-   the first 4 clips.
+   the first 4 clips;
+12. serving and evaluation: ``DAC()`` at its defaults (seeded weights)
+   through ``save_to_folder`` and ``load_from_folder`` (weights bit-equal),
+   8 clips of 30 s at 44.1 kHz (2,584 code frames each) through
+   ``compress`` whole and streamed (128-frame chunks), a
+   ``StreamingEncoder`` fed in irregular blocks, the artifact's save and
+   load, ``decompress`` whole and streamed: ms, real-time factor and peak
+   memory of each, streamed against whole (codes equal, audio within 2e-6),
+   and the whole passes' convolution throughput and profiled kernels; then
+   the 8 (original, reconstruction) pairs through ``stoi_device`` (plain and
+   extended), ``pesq_device(mode="wb")`` and ``visqol(backend="nsim")`` in
+   its audio and speech modes: ms and pairs/s; items 0-1 through the same
+   entry points on the CPU (codes, audio beside the card's float64 decode,
+   scores, PESQ's delays and STOI's retained frames) and against the
+   float64 host STOI and native PESQ, on the reconstructions and on a
+   20 dB-SNR control pair. This path runs none of the five kernels.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -83,6 +98,7 @@ The last lines are the kernel table, the card's name and power limit, and
 non-zero and prints no result.
 """
 import contextlib
+import copy
 import csv
 import json
 import subprocess
@@ -190,6 +206,35 @@ MT_WINDOW = (1.0, 0.5)  # seconds: window, hop
 MT_TOL = {"mix_abs": 0.0, "stft_rel": 1e-5, "vocoder_abs": 0.0, "istft_abs": 1e-4,
           "eq_abs": 1e-4, "bands_abs": 1e-4, "bands_sum_abs": 1e-6, "weighted_abs": 1e-4,
           "windows_abs": 1e-4, "mel_rel": 1e-4, "log_dct_rel": 1e-4}
+
+# serving and evaluation: DAC() at its defaults (seeded weights) saved and
+# loaded back, 8 clips of 30 s at 44.1 kHz (2,584 code frames each)
+# compressed and decompressed whole and through 128-frame windows, and the
+# 8 (original, reconstruction) pairs scored. Streamed against whole: codes
+# equal, audio within 2e-6 (the JAX package's pin,
+# tests/models/test_streaming.py). A code that differs counts against the
+# check only where the whole pass's two best codeword similarities at the
+# frame's first differing stage lie more than 1e-5 apart (relative): inside
+# that gap fp32 rounding decides; the encoder's latents are held within 1e-5
+# of their largest value. Card against CPU on items 0-1 (SERVE_CHECK): codes
+# as above; the scores at the JAX package's pins (STOI 5e-4, PESQ 2e-3 MOS,
+# NSIM 1e-4), PESQ's delays and STOI's retained-frame counts equal; the decoded
+# audio, a forward pass through ~50 layers in fp32 in other orders on the two
+# devices, within 1e-5 of its largest value (tests/test_torch_models.py's
+# FWD_RTOL), each device also that close to the card's float64 decode. The
+# float64 host STOI and native PESQ on items 0-1 are the oracle, at the same
+# pins, on the reconstructions and on a control pair (each clip at 20 dB
+# SNR); device PESQ reproduces the host's trim where the delay is not
+# negative (or a whole number of hops), its framing phase otherwise
+# (ops/pesq.py), so it is held there.
+SERVE_MODEL = {}  # DAC()'s defaults
+SERVE_BATCH = 8
+SERVE_SECONDS = 30.0
+SERVE_CHUNK = 128
+SERVE_CHECK = 2
+SERVE_BLOCKS = (0.1, 0.7)  # seconds: the StreamingEncoder's push sizes
+SERVE_TOL = {"audio_abs": 2e-6, "margin_rel": 1e-5, "latent_rel": 1e-5, "device_rel": 1e-5,
+             "stoi": 5e-4, "pesq": 2e-3, "nsim": 1e-4}
 
 
 def fail(msg):
@@ -1488,6 +1533,312 @@ def phase_training_card_vs_cpu(audio, dev):
             del card_models, cpu_models, card_step, cpu_step
 
 
+# ---------------------------------------------------------------------------
+# serving and evaluation
+# ---------------------------------------------------------------------------
+
+
+def _timed(fn):
+    """``fn``'s result, ms (CUDA events), host wall ms, the peak allocation
+    and its increment over the allocation before the call: one call after an
+    untimed one, the peak statistics reset before it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) * 1000
+    peak = torch.cuda.max_memory_allocated()
+    return out, start.elapsed_time(end), wall, peak, peak - base
+
+
+def _conv_flops(model, fn):
+    """``fn()``'s result and the operations of the model's convolutions in
+    it (2 per multiply-add), counted from their shapes by forward hooks."""
+    from torch import nn
+
+    total = [0]
+
+    def count(layer, inputs, out):
+        if isinstance(layer, nn.ConvTranspose1d):
+            total[0] += 2 * inputs[0].numel() * layer.out_channels * layer.kernel_size[0]
+        else:
+            total[0] += 2 * out.numel() * layer.in_channels * layer.kernel_size[0]
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d))]
+    try:
+        return fn(), total[0]
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _vq_gaps(model, audio):
+    """The whole pass's pre-quantization latents and, per stage and frame,
+    the gap between the two best codeword similarities relative to the best,
+    ``(B, n_q, frames)``."""
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    with torch.no_grad(), strict_fp32():
+        z = model.encoder(model._pad(audio))
+        residual, gaps = z, []
+        for vq in model.quantizer.quantizers:
+            z_e = vq.in_proj(residual.transpose(1, 2))
+            z_n = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-8)
+            c_n = vq.codebook / (torch.linalg.vector_norm(vq.codebook, dim=-1, keepdim=True) + 1e-8)
+            top = torch.topk(z_n @ c_n.T, 2, dim=-1).values
+            gaps.append((top[..., 0] - top[..., 1]) / top[..., 0].abs())
+            residual = residual - vq(residual)[0]
+    return z, torch.stack(gaps, dim=1)
+
+
+def _code_mismatch(label, codes, want, gaps):
+    """Compare two code tensors ``(B, n_q, frames)``. A frame whose codes
+    differ is excused when the whole pass's gap at its first differing stage
+    is within SERVE_TOL["margin_rel"]: there fp32 rounding picks the code
+    (and the later stages follow from it). Returns the frames that count."""
+    codes, want, gaps = codes.cpu(), want.cpu(), gaps.cpu()
+    expect(codes.shape == want.shape, f"{label}: codes {tuple(codes.shape)} vs {tuple(want.shape)}")
+    diff = codes != want
+    frames = diff.any(dim=1)
+    gap = torch.gather(gaps, 1, diff.int().argmax(dim=1, keepdim=True))[:, 0]
+    counted = int((frames & (gap > SERVE_TOL["margin_rel"])).sum())
+    print(f"[serve] {label}: {int(diff.sum())} of {diff.numel()} codes differ, in "
+          f"{int(frames.sum())} frames; {counted} count against the check; gaps at the first "
+          f"differing stage: {[f'{g:.2e}' for g in gap[frames].tolist()[:12]]}")
+    expect(counted == 0, f"{label}: {counted} frames' codes differ beyond rounding")
+    return counted
+
+
+def _streamed_latents(model, audio, chunk):
+    """The encoder's latents through the streaming window geometry."""
+    from audiotools_tpu_torch.models import streaming
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    hop, halo = model.hop_length, streaming.encoder_halo_frames(model)
+    x = model._pad(audio)
+    W, out = chunk + 2 * halo, []
+    with torch.no_grad(), strict_fp32():
+        for start, lo, hi in streaming._window_starts(x.shape[-1] // hop, chunk, halo, W):
+            out.append(model.encoder(x[..., start * hop: (start + W) * hop].contiguous())[..., lo:hi])
+    return torch.cat(out, dim=-1)
+
+
+def _metric_parts(orig, recon):
+    """STOI (scores, retained frames), PESQ wb (scores, delays) and raw NSIM
+    in both modes of ``(original, reconstruction)`` through the device
+    programs, on the signals' device."""
+    from audiotools_tpu_torch.ops import nsim, pesq, stoi
+
+    def at(signal, rate):
+        return signal.clone().to_mono().resample(rate).audio_data[:, 0, :]
+
+    out = {"stoi": stoi._stoi_parts(at(orig, stoi.FS), at(recon, stoi.FS), False),
+           "estoi": stoi._stoi_parts(at(orig, stoi.FS), at(recon, stoi.FS), True),
+           "pesq": pesq._pesq_parts(*pesq._checked_pair(at(orig, 16000), at(recon, 16000), "wb"),
+                                    "wb")}
+    for mode in ("audio", "speech"):
+        fs = nsim.MODES[mode]["fs"]
+        out[f"nsim_{mode}"] = (nsim.nsim_batch(at(orig, fs), at(recon, fs), mode=mode),)
+    return {k: tuple(v.cpu() for v in vals) for k, vals in out.items()}
+
+
+def phase_serving(root, dev, card):
+    """The codec's serving and evaluation path at full width: DAC() saved and
+    loaded back, the batch compressed and decompressed whole and streamed,
+    the artifact round trip, the pairs scored; then items 0-1 on the CPU and
+    through the host oracles. Launch counts are set to 0 just before and read
+    just after (this path runs none of the five kernels)."""
+    import warnings
+
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.metrics import quality as Q
+    from audiotools_tpu_torch.metrics._pesq import _MODES
+    from audiotools_tpu_torch.models import (DAC, StreamingEncoder, compress, decompress,
+                                             load_artifact, save_artifact)
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    warnings.filterwarnings("ignore", message=".*in-package.*")  # uncertified-scale notices
+    HK.reset_launch_counts()
+    t0 = time.perf_counter()
+    host_model = DAC(**SERVE_MODEL)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    folder = host_model.save_to_folder(root / "serve")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, _ = DAC.load_from_folder(root / "serve")
+    load_s = time.perf_counter() - t0
+    host_sd = host_model.state_dict()
+    same = all(torch.equal(host_sd[k], v.cpu()) for k, v in model.state_dict().items())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] DAC({SERVE_MODEL or ''}) {n_params / 1e6:.2f} M parameters: init {init_s:.2f} s, "
+          f"save_to_folder {save_s:.2f} s ({sum(f.stat().st_size for f in folder.iterdir()) / 2**20:.1f}"
+          f" MiB), load_from_folder to {model.device} {load_s:.2f} s; weights bit-equal: {same}")
+    expect(same and model.device.type == "cuda", "load_from_folder did not restore the weights on the card")
+
+    n = int(SERVE_SECONDS * SR)
+    orig = AudioSignal(np.stack([speech_like(300 + i, SERVE_SECONDS) for i in range(SERVE_BATCH)])[:, None],
+                       SR)
+    expect(orig.device.type == "cuda", f"signals on {orig.device}")
+    audio_s = SERVE_BATCH * SERVE_SECONDS
+    frames = -(-n // model.hop_length)
+
+    def report(label, ms, wall, peak, inc):
+        print(f"[serve] {label}: {ms:.3f} ms (CUDA events; host wall {wall:.3f}), RTF "
+              f"{ms / 1000 / audio_s:.3e} (compute / audio), {audio_s / (ms / 1000):.1f}x real time | "
+              f"peak {peak / 2**30:.3f} GiB, +{inc / 2**30:.3f} GiB over the call's start | {card}")
+
+    res = {}
+    art, *res["compress"] = _timed(lambda: compress(model, orig))
+    art_s, *res["compress streamed"] = _timed(
+        lambda: compress(model, orig, streaming=True, chunk_frames=SERVE_CHUNK))
+    for label in ("compress", "compress streamed"):
+        report(f"{label} {SERVE_BATCH} x {n} ({frames} code frames)", *res[label])
+    expect(art["codes"].shape == (SERVE_BATCH, model.n_codebooks, frames),
+           f"codes {art['codes'].shape}")
+    whole = torch.from_numpy(art["codes"].astype(np.int64))
+    z, gaps = _vq_gaps(model, orig.audio_data)
+    _code_mismatch("streamed vs whole codes", torch.from_numpy(art_s["codes"].astype(np.int64)), whole,
+                   gaps)
+    z_s = _streamed_latents(model, orig.audio_data, SERVE_CHUNK)
+    latent_rel = float((z_s - z).abs().max() / z.abs().max())
+    print(f"[serve] streamed vs whole latents: {latent_rel:.3e} of the largest (tol "
+          f"{SERVE_TOL['latent_rel']:g})")
+    expect(latent_rel <= SERVE_TOL["latent_rel"], f"streamed latents {latent_rel:.3e}")
+    del z, z_s
+
+    rng = np.random.RandomState(12)
+    enc, pushed, pieces, pos = StreamingEncoder(model, SERVE_BATCH, SERVE_CHUNK), 0, [], 0
+    while pos < n:
+        step = int(rng.uniform(*SERVE_BLOCKS) * SR)
+        pieces += list(enc.push(orig.audio_data[:, :, pos: pos + step]))
+        pos, pushed = pos + step, pushed + 1
+    pieces += list(enc.flush())
+    _code_mismatch(f"StreamingEncoder ({pushed} pushes of {SERVE_BLOCKS[0]}-{SERVE_BLOCKS[1]} s) "
+                   "vs whole codes", torch.cat(pieces, dim=-1), whole, gaps)
+    del pieces, enc
+
+    path = save_artifact(str(root / "serve" / "clips.npz"), art)
+    back = load_artifact(path)
+    expect(back.keys() == art.keys() and np.array_equal(back["codes"], art["codes"])
+           and all(back[k] == art[k] for k in art if k != "codes"), "artifact round trip")
+    print(f"[serve] artifact: {Path(path).stat().st_size / 2**20:.3f} MiB on disk for "
+          f"{audio_s:.0f} s of audio ({art['codes'].dtype}, {SERVE_BATCH * n * 2 / Path(path).stat().st_size:.1f}x"
+          f" smaller than 16-bit PCM)")
+
+    recon, *res["decompress"] = _timed(lambda: decompress(model, back))
+    recon_s, *res["decompress streamed"] = _timed(
+        lambda: decompress(model, back, streaming=True, chunk_frames=SERVE_CHUNK))
+    for label in ("decompress", "decompress streamed"):
+        report(f"{label} {SERVE_BATCH} x {frames} frames -> {n} samples", *res[label])
+    audio_gap = float((recon_s.audio_data - recon.audio_data).abs().max())
+    print(f"[serve] streamed vs whole audio: {audio_gap:.3e} abs (tol {SERVE_TOL['audio_abs']:g}); "
+          f"reconstruction peak {float(recon.audio_data.abs().max()):.4f}")
+    expect(recon.audio_data.shape == orig.audio_data.shape and bool(torch.isfinite(recon.audio_data).all()),
+           f"reconstruction {tuple(recon.audio_data.shape)}")
+    expect(audio_gap <= SERVE_TOL["audio_abs"], f"streamed audio {audio_gap:.3e}")
+    del recon_s
+
+    calls = {
+        "stoi_device": lambda: Q.stoi_device(recon, orig),
+        "stoi_device extended": lambda: Q.stoi_device(recon, orig, extended=True),
+        "pesq_device wb": lambda: Q.pesq_device(recon, orig, mode="wb"),
+        "visqol nsim audio": lambda: Q.visqol(recon, orig, mode="audio", backend="nsim"),
+        "visqol nsim speech": lambda: Q.visqol(recon, orig, mode="speech", backend="nsim"),
+    }
+    scores = {}
+    for label, fn in calls.items():
+        scores[label], ms, wall, peak, _ = _timed(fn)
+        res[label] = (ms, wall, peak)
+        print(f"[eval] {label}: {ms:.3f} ms (host wall {wall:.3f}), {SERVE_BATCH / (ms / 1000):.2f} "
+              f"pairs/s, peak {peak / 2**30:.3f} GiB | scores {[round(v, 5) for v in scores[label].tolist()]}"
+              f" | {card}")
+        expect(scores[label].shape == (SERVE_BATCH,) and bool(torch.isfinite(scores[label]).all()),
+               f"{label}: {scores[label]}")
+    launches = dict(HK.LAUNCHES)
+
+    # items 0-1 on the CPU: the codec through the same entry points, with
+    # the card's decode in float64 as the reference both fp32 decodes sit
+    # around; then the metrics, against the float64 host oracles and on
+    # the CPU, on the reconstructions and on a control pair (each clip at
+    # 20 dB SNR: delay 0, where device PESQ reproduces the host's trim)
+    k = SERVE_CHECK
+    orig_k = AudioSignal(orig.audio_data[:k], SR)
+    orig_cpu = AudioSignal(orig.audio_data[:k].cpu(), SR)
+    t0 = time.perf_counter()
+    art_cpu = compress(host_model, orig_cpu)
+    recon_host = decompress(host_model, dict(art, codes=art["codes"][:k]))
+    cpu_s = time.perf_counter() - t0
+    _code_mismatch(f"card vs CPU codes (items 0-{k - 1})",
+                   torch.from_numpy(art_cpu["codes"].astype(np.int64)), whole[:k], gaps[:k])
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        ref64 = model64.decode_from_codes(whole[:k].to(dev))[..., :n].cpu()
+    del model64
+    card_gap = float((recon.audio_data[:k].cpu().double() - ref64).abs().max())
+    cpu_gap = float((recon_host.audio_data.double() - ref64).abs().max())
+    audio_cpu_gap = float((recon_host.audio_data - recon.audio_data[:k].cpu()).abs().max())
+    bound = SERVE_TOL["device_rel"] * float(ref64.abs().max())
+    print(f"[serve card vs cpu] items 0-{k - 1}: decompressed audio {audio_cpu_gap:.3e} abs (tol "
+          f"{bound:.3e}: {SERVE_TOL['device_rel']:g} of the largest, {float(ref64.abs().max()):.4f}); "
+          f"from the float64 decode: card {card_gap:.3e}, CPU {cpu_gap:.3e}; the CPU's compress + "
+          f"decompress took {cpu_s:.2f} s")
+    expect(max(audio_cpu_gap, card_gap, cpu_gap) <= bound,
+           f"card vs CPU audio {audio_cpu_gap:.3e}, from float64 {card_gap:.3e} / {cpu_gap:.3e}")
+
+    noise = torch.from_numpy(np.random.RandomState(13).randn(k, 1, n).astype(np.float32)).to(dev)
+    control = orig_k.audio_data + noise * orig_k.audio_data.std(dim=-1, keepdim=True) / 10.0
+    hop = _MODES["wb"].hop
+    for pair, est in (("reconstruction", AudioSignal(recon.audio_data[:k], SR)),
+                      ("control +20 dB noise", AudioSignal(control, SR))):
+        est_cpu = AudioSignal(est.audio_data.cpu(), SR)
+        card_parts, cpu_parts = _metric_parts(orig_k, est), _metric_parts(orig_cpu, est_cpu)
+        delays = card_parts["pesq"][1]
+        for label, got, want in (
+                ("stoi", Q.stoi_device(est, orig_k), Q.stoi(est_cpu, orig_cpu)),
+                ("estoi", Q.stoi_device(est, orig_k, extended=True),
+                 Q.stoi(est_cpu, orig_cpu, extended=True)),
+                ("pesq", Q.pesq_device(est, orig_k), Q.pesq(est_cpu, orig_cpu, backend="native"))):
+            gap = (got.cpu().double() - want.cpu()).abs()
+            tol = SERVE_TOL["pesq" if label == "pesq" else "stoi"]
+            held = [i for i in range(k) if label != "pesq" or delays[i] >= 0 or delays[i] % hop == 0]
+            print(f"[eval {pair}] {label} device vs the float64 host oracle: {gap.tolist()} (tol {tol:g};"
+                  f" held on items {held}{f', delays {delays.tolist()}' if label == 'pesq' else ''})")
+            expect(all(gap[i] <= tol for i in held), f"{pair}: {label} vs host oracle {gap.tolist()}")
+        for key, tol in (("stoi", "stoi"), ("estoi", "stoi"), ("pesq", "pesq"), ("nsim_audio", "nsim"),
+                         ("nsim_speech", "nsim")):
+            err = float((card_parts[key][0] - cpu_parts[key][0]).abs().max())
+            line = f"[eval {pair} card vs cpu] {key}: {err:.3e} (tol {SERVE_TOL[tol]:g})"
+            expect(err <= SERVE_TOL[tol], f"{pair}: card vs CPU {key} {err:.3e}")
+            if len(card_parts[key]) > 1:
+                what = "delays" if key == "pesq" else "retained frames"
+                line += f"; {what} card {card_parts[key][1].tolist()}, cpu {cpu_parts[key][1].tolist()}"
+                expect(torch.equal(card_parts[key][1], cpu_parts[key][1]), f"{pair}: card vs CPU {what}")
+            print(line)
+    # last, so the profiler cannot touch the timings above
+    for label, fn in (("compress", lambda: compress(model, orig)),
+                      ("decompress", lambda: decompress(model, back))):
+        flops = _conv_flops(model, fn)[1]
+        ms = res[label][0]
+        prof_wall, busy, n_kernels, rows = profile_step(lambda _: fn(), None, top=6)
+        print(f"[serve] {label}, whole: convolutions {flops / 1e12:.3f} TFLOP, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, bound {flops / FP32_FLOPS * 1e3:.1f} ms at the fp32 "
+              f"peak ({flops / FP32_FLOPS * 1e3 / ms:.1%} of it reached); profiled (wall "
+              f"{prof_wall:.3f} ms): {n_kernels} kernels, {busy:.3f} ms on the device, idle "
+              f"{1 - busy / ms:.1%} of the unprofiled call; by device time: "
+              + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in rows))
+    print(f"[launches] serving and evaluation: {launches} (none of the five kernels lies on this path)")
+    del model, host_model, recon, orig
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -1525,6 +1876,8 @@ def main():
         train_audio, train_launches, _ = phase_codec_training(root, dev, card)
         launches.update(train_launches)
         phase_training_card_vs_cpu(train_audio, dev)
+        del train_audio
+        launches["serving"], _ = phase_serving(root, dev, card)
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:

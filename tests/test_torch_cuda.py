@@ -566,3 +566,60 @@ def test_loader_stages_an_int16_batch_on_the_card(cuda, tmp_path):
         back = signal.clone().dequantize_wire().audio_data
         assert back.device.type == "cuda"
         assert float((back.cpu() - host[voice]["signal"].audio_data).abs().max()) <= 2.0 ** -16
+
+
+# -- the serving and evaluation path (no kernel of its own) --------------------
+
+SERVING_TINY = dict(encoder_dim=8, encoder_rates=(2, 4, 4), latent_dim=16, decoder_dim=64,
+                    n_codebooks=2, codebook_size=32, codebook_dim=4, sample_rate=16000)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_streamed_codec_equals_whole_pass_on_card(cuda, chunk):
+    """On the card: streamed codes equal the whole pass's and the CPU's,
+    streamed audio within 2e-6 of the whole decode and of the CPU's."""
+    from audiotools_tpu_torch.models import DAC, compress, decompress
+
+    cpu_model = DAC(**SERVING_TINY)
+    card_model = DAC(**SERVING_TINY).to(cuda)
+    audio = (np.random.RandomState(7).randn(2, 1, 3000) * 0.3).astype(np.float32)
+    art = compress(card_model, audio)
+    art_s = compress(card_model, audio, streaming=True, chunk_frames=chunk)
+    assert np.array_equal(art["codes"], art_s["codes"])
+    assert np.array_equal(art["codes"], compress(cpu_model, audio)["codes"])
+    rec = decompress(card_model, art)
+    rec_s = decompress(card_model, art, streaming=True, chunk_frames=chunk)
+    assert rec.device.type == rec_s.device.type == "cuda"
+    assert float((rec_s.audio_data - rec.audio_data).abs().max()) <= 2e-6
+    assert float((rec.audio_data.cpu() - decompress(cpu_model, art).audio_data).abs().max()) <= 2e-6
+
+
+def test_quality_metrics_on_card_match_cpu(cuda):
+    """STOI (and its retained frames), PESQ (and its delays) and NSIM on the
+    card against the same programs on the CPU, at the JAX package's pins."""
+    from audiotools_tpu_torch.ops import nsim as PN
+    from audiotools_tpu_torch.ops import pesq as PPQ
+    from audiotools_tpu_torch.ops import stoi as PST
+
+    # broadband speech-like test signals (a pure tone would leave most bands
+    # at the FFTs' rounding floor, where STOI correlates rounding noise)
+    rng = np.random.RandomState(3)
+    t = np.arange(32000) / 16000
+    phase = np.cumsum(2 * np.pi * (120 + 30 * np.sin(2 * np.pi * 0.4 * t)) / 16000)
+    voiced = sum(np.sin(h * phase) / h for h in range(1, 6)) + 0.15 * rng.randn(32000)
+    x = (0.15 * voiced * 0.5 * (1 + np.sin(2 * np.pi * 2.5 * t))).astype(np.float32)
+    ref = np.stack([x, x, x])
+    est = np.stack([x, x + 0.05 * rng.randn(32000), np.roll(x, 40)]).astype(np.float32)
+    cpu = (torch.from_numpy(ref), torch.from_numpy(est))
+    card = tuple(a.to(cuda) for a in cpu)
+    for ext in (False, True):  # the 16 kHz signals scored as if at 10 kHz: any rate will do
+        got, n_got = PST._stoi_parts(card[0], card[1], ext)
+        want, n_want = PST._stoi_parts(cpu[0], cpu[1], ext)
+        assert torch.equal(n_got.cpu(), n_want)
+        assert float((got.cpu() - want).abs().max()) <= 5e-4
+    got, d_got = PPQ._pesq_parts(*card, "wb")
+    want, d_want = PPQ._pesq_parts(*cpu, "wb")
+    assert torch.equal(d_got.cpu(), d_want)
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
+    got = PN.nsim_batch(*card, mode="speech")
+    assert float((got.cpu() - PN.nsim_batch(*cpu, mode="speech")).abs().max()) <= 1e-4

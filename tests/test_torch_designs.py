@@ -11,12 +11,18 @@ import pytest
 from audiotools_tpu.ops import fft as JF
 from audiotools_tpu.ops import filters as JFL
 from audiotools_tpu.ops import loudness as JL
+from audiotools_tpu.ops import nsim as JN
+from audiotools_tpu.ops import pesq as JP
 from audiotools_tpu.ops import resample as JR
+from audiotools_tpu.ops import stoi as JSTOI
 from audiotools_tpu.ops import stretch as JS
 from audiotools_tpu_torch.ops import fft as PF
 from audiotools_tpu_torch.ops import filters as PFL
 from audiotools_tpu_torch.ops import loudness as PL
+from audiotools_tpu_torch.ops import nsim as PN
+from audiotools_tpu_torch.ops import pesq as PP
 from audiotools_tpu_torch.ops import resample as PR
+from audiotools_tpu_torch.ops import stoi as PSTOI
 from audiotools_tpu_torch.ops import stretch as PS
 
 
@@ -115,3 +121,24 @@ def test_composed_fir(rate, filter_class, zeros):
                                                (16000, "Dash et al.")])
 def test_exact_fir(rate, filter_class):
     _equal(PL._exact_fir(rate, filter_class), JL._exact_fir(rate, filter_class))
+
+
+@pytest.mark.parametrize("args", [(), (10000, 512, 15, 150), (16000, 1024, 20, 100)])
+def test_stoi_thirdoct_and_window(args):
+    _equal(PSTOI.thirdoct(*args), JSTOI.thirdoct(*args))
+    _equal(PSTOI._window(), JSTOI._window())
+
+
+@pytest.mark.parametrize("mode", ["nb", "wb"])
+@pytest.mark.parametrize("n_fft", [2, 4096, 524288])
+def test_pesq_mode_tables(mode, n_fft):
+    got, want = PP._mode_tables(mode, n_fft), JP._mode_tables(mode, n_fft)
+    assert got.keys() == want.keys()
+    for key in want:
+        _equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("mode", ["speech", "audio"])
+def test_nsim_gammatone_weights(mode):
+    assert PN.MODES[mode] == JN.MODES[mode]
+    _equal(PN.gammatone_weights(mode), JN.gammatone_weights(mode))
