@@ -19,6 +19,8 @@ from typing import List
 import numpy as np
 import torch
 
+from .._hostprof import span
+
 AUDIO_EXTENSIONS = [".wav"]
 
 
@@ -243,11 +245,12 @@ def collate(list_of_dicts: list, n_splits: int = None):
                 merged[key] = _default_collate(column)
         return unflatten(merged)
 
-    if n_splits is None:
-        return collate_chunk(list_of_dicts)
-    per_split = int(math.ceil(len(list_of_dicts) / n_splits))
-    return [collate_chunk(list_of_dicts[i:i + per_split])
-            for i in range(0, len(list_of_dicts), per_split)]
+    with span("collate"):
+        if n_splits is None:
+            return collate_chunk(list_of_dicts)
+        per_split = int(math.ceil(len(list_of_dicts) / n_splits))
+        return [collate_chunk(list_of_dicts[i:i + per_split])
+                for i in range(0, len(list_of_dicts), per_split)]
 
 
 def _map_signals(batch, fn):

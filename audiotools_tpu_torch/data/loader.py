@@ -21,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from .._hostprof import span
 from ..core import util
 
 _DONE = object()
@@ -117,8 +118,9 @@ class DataLoader:
         """Copy ``batch`` to the device; returns it with the CUDA event that
         marks the end of its copy (``None`` when there is nothing to wait on)."""
         if stream is None:
-            return util.prepare_batch(batch, self.device), None
-        with torch.cuda.stream(stream):
+            with span("device_put"):
+                return util.prepare_batch(batch, self.device), None
+        with torch.cuda.stream(stream), span("device_put"):
             staged = util.prepare_batch(batch, self.device)
             event = torch.cuda.Event()
             event.record(stream)

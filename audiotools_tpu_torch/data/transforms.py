@@ -21,6 +21,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .._hostprof import span
 from ..core import AudioSignal
 from ..core import util
 from ..core._dsp import _polar
@@ -111,10 +112,11 @@ class BaseTransform:
     def instantiate(self, state=None, signal: AudioSignal = None):
         """Draw this transform's parameters, then (for ``prob < 1``) its mask."""
         state = util.random_state(state)
-        if "signal" in signature(self._instantiate).parameters:
-            params = self._instantiate(state, signal=signal)
-        else:
-            params = self._instantiate(state)
+        with span("instantiate"):
+            if "signal" in signature(self._instantiate).parameters:
+                params = self._instantiate(state, signal=signal)
+            else:
+                params = self._instantiate(state)
         params = {k: v if isinstance(v, (AudioSignal, torch.Tensor, dict)) else tt(v)
                   for k, v in params.items()}
         if self.prob >= 1.0:

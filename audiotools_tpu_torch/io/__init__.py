@@ -1,6 +1,7 @@
 """Host-side audio I/O: the WAV subset of ``audiotools_tpu.io``."""
 from pathlib import Path
 
+from .._hostprof import span
 from .wav import WavInfo, read_wav, wav_info, write_wav
 
 __all__ = ["load_audio", "audio_info", "save_audio", "write_wav", "read_wav", "wav_info",
@@ -21,7 +22,8 @@ def audio_info(path) -> WavInfo:
 def load_audio(path, offset: float = 0.0, duration: float = None):
     """Decode audio as ``(C, T)`` float32 in [-1, 1] plus its sample rate."""
     _require_wav(path)
-    return read_wav(path, offset=offset, duration=duration)
+    with span("decode"):
+        return read_wav(path, offset=offset, duration=duration)
 
 
 def save_audio(path, data, sample_rate: int, subtype: str = "PCM_16"):

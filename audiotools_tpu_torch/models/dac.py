@@ -11,6 +11,13 @@ from a JAX parameter tree by ``models.convert``. A model computes on the
 device of its parameters. The convolutions run at the caller's TF32
 settings; the codebook similarity runs in full fp32, as the JAX package
 pins it at ``HIGHEST``.
+
+``dtype`` is flax's compute dtype: the parameters stay fp32, and every conv
+and transposed conv of the encoder and decoder casts its input, weight and
+bias to ``dtype`` where it uses them (explicit casts, not autocast, so the
+model computes what the JAX package computes); Snake runs in its input's
+dtype. The encoder hands fp32 latents to the quantizer and the decoder
+returns an fp32 waveform.
 """
 import math
 from typing import Tuple
@@ -25,6 +32,7 @@ from ..ops._fp32 import strict_fp32
 
 __all__ = [
     "snake",
+    "Conv1d",
     "Snake",
     "ResidualUnit",
     "EncoderBlock",
@@ -51,7 +59,7 @@ class Snake(nn.Module):
         self.alpha = nn.Parameter(torch.ones(1, channels, 1))
 
     def forward(self, x):
-        return snake(x, self.alpha)
+        return snake(x, self.alpha.to(x.dtype))
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -63,13 +71,47 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
                                      generator=generator)
 
 
-def _conv1d(c_in, c_out, k, generator, dilation=1, stride=1, padding=None, std=None):
-    """A flax-initialized ``Conv1d``; ``padding`` defaults to SAME for an
-    odd kernel at stride 1, ``std`` replaces ``lecun_normal`` by a plain
-    normal of that deviation."""
+def _in_dtype(dtype, *tensors):
+    """``tensors`` cast to the compute ``dtype`` (as they are for None)."""
+    return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
+
+
+def conv_in_dtype(conv, dtype, x, weight, bias, *args):
+    """``conv(x, weight, bias, *args)`` with its operands cast to the compute
+    ``dtype``. On the card that is cuDNN's conv in ``dtype`` (products summed
+    in fp32, the sum rounded to ``dtype``). The CPU's bf16 convolutions miss
+    by O(1) at some shapes (a 9-tap 2-D conv to a width-1 output), so on the
+    host the rounded operands are summed in fp32 and the sum rounded to
+    ``dtype``: the same arithmetic."""
+    if dtype is None:
+        return conv(x, weight, bias, *args)
+    x, weight, bias = _in_dtype(dtype, x, weight, bias)
+    if x.device.type == "cpu":
+        return conv(x.float(), weight.float(), bias.float(), *args).to(dtype)
+    return conv(x, weight, bias, *args)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in ``compute_dtype`` when it is given: input,
+    weight and bias cast at use, the parameters kept as they are."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return conv_in_dtype(self._conv_forward, self.compute_dtype, x, self.weight, self.bias)
+
+
+def _conv1d(c_in, c_out, k, generator, dilation=1, stride=1, padding=None, std=None,
+            dtype=None):
+    """A flax-initialized ``Conv1d`` computing in ``dtype``; ``padding``
+    defaults to SAME for an odd kernel at stride 1, ``std`` replaces
+    ``lecun_normal`` by a plain normal of that deviation."""
     if padding is None:
         padding = dilation * (k - 1) // 2
-    conv = nn.Conv1d(c_in, c_out, k, stride=stride, padding=padding, dilation=dilation)
+    conv = Conv1d(c_in, c_out, k, stride=stride, padding=padding, dilation=dilation,
+                  compute_dtype=dtype)
     if std is None:
         lecun_normal_(conv.weight, k * c_in, generator)
     else:
@@ -84,12 +126,12 @@ class ResidualUnit(nn.Module):
     output conv starts near zero (normal, deviation 1e-2), so the unit
     starts near the identity."""
 
-    def __init__(self, dim: int, dilation: int = 1, generator=None):
+    def __init__(self, dim: int, dilation: int = 1, generator=None, dtype=None):
         super().__init__()
         self.snake1 = Snake(dim)
-        self.conv1 = _conv1d(dim, dim, 7, generator, dilation=dilation)
+        self.conv1 = _conv1d(dim, dim, 7, generator, dilation=dilation, dtype=dtype)
         self.snake2 = Snake(dim)
-        self.conv2 = _conv1d(dim, dim, 1, generator, std=1e-2)
+        self.conv2 = _conv1d(dim, dim, 1, generator, std=1e-2, dtype=dtype)
 
     def forward(self, x):
         return x + self.conv2(self.snake2(self.conv1(self.snake1(x))))
@@ -99,12 +141,13 @@ class EncoderBlock(nn.Module):
     """Three residual units at ``dim // 2`` (dilations 1, 3, 9), Snake, and a
     conv of ``2 stride`` taps at ``stride`` to ``dim`` channels."""
 
-    def __init__(self, dim: int, stride: int, generator=None):
+    def __init__(self, dim: int, stride: int, generator=None, dtype=None):
         super().__init__()
-        self.units = nn.ModuleList([ResidualUnit(dim // 2, d, generator) for d in (1, 3, 9)])
+        self.units = nn.ModuleList([ResidualUnit(dim // 2, d, generator, dtype)
+                                    for d in (1, 3, 9)])
         self.snake = Snake(dim // 2)
         self.conv = _conv1d(dim // 2, dim, 2 * stride, generator, stride=stride,
-                            padding=math.ceil(stride / 2))
+                            padding=math.ceil(stride / 2), dtype=dtype)
 
     def forward(self, x):
         for unit in self.units:
@@ -119,17 +162,22 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
     pad_a`` on the right, which is the full transposed conv cropped by ``k
     - 1`` less each. ``ConvTranspose1d`` crops ``padding`` at both ends, so
     where the two crops differ (an odd stride at ``k = 2 s``) the right one
-    is finished here. The output is ``stride`` times the input."""
+    is finished here. The output is ``stride`` times the input. With
+    ``compute_dtype`` set, input, weight and bias are cast to it at use."""
 
-    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
+                 compute_dtype=None):
         pad_len = kernel_size + stride - 2
         pad_a = kernel_size - 1 if stride > kernel_size - 1 else math.ceil(pad_len / 2)
         left, right = kernel_size - 1 - pad_a, kernel_size - 1 - (pad_len - pad_a)
         super().__init__(c_in, c_out, kernel_size, stride=stride, padding=min(left, right))
         self.crops = (left - min(left, right), right - min(left, right))
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        y = super().forward(x)
+        y = conv_in_dtype(F.conv_transpose1d, self.compute_dtype, x, self.weight, self.bias,
+                          self.stride, self.padding, self.output_padding, self.groups,
+                          self.dilation)
         left, right = self.crops
         return y[..., left: y.shape[-1] - right] if left or right else y
 
@@ -138,15 +186,15 @@ class DecoderBlock(nn.Module):
     """Snake, a transposed conv of ``2 stride`` taps up by ``stride`` to
     ``dim`` channels, and three residual units (dilations 1, 3, 9)."""
 
-    def __init__(self, in_dim: int, dim: int, stride: int, generator=None):
+    def __init__(self, in_dim: int, dim: int, stride: int, generator=None, dtype=None):
         super().__init__()
         k = 2 * stride
         self.snake = Snake(in_dim)
-        self.conv = ConvTranspose1dSame(in_dim, dim, k, stride)
+        self.conv = ConvTranspose1dSame(in_dim, dim, k, stride, dtype)
         # flax's fan-in of a (k, in, out) kernel: k * in
         lecun_normal_(self.conv.weight, k * in_dim, generator)
         nn.init.zeros_(self.conv.bias)
-        self.units = nn.ModuleList([ResidualUnit(dim, d, generator) for d in (1, 3, 9)])
+        self.units = nn.ModuleList([ResidualUnit(dim, d, generator, dtype) for d in (1, 3, 9)])
 
     def forward(self, x):
         x = self.conv(self.snake(x))
@@ -156,47 +204,53 @@ class DecoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """``(B, 1, T)`` -> ``(B, latent_dim, T / prod(strides))``."""
+    """``(B, 1, T)`` -> fp32 ``(B, latent_dim, T / prod(strides))``, computed
+    in ``dtype``."""
 
     def __init__(self, d_model: int = 64, strides=(2, 4, 8, 8), latent_dim: int = 256,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
-        self.conv_in = _conv1d(1, d_model, 7, generator)
+        self.dtype = dtype
+        self.conv_in = _conv1d(1, d_model, 7, generator, dtype=dtype)
         blocks, d = [], d_model
         for stride in strides:
-            blocks.append(EncoderBlock(2 * d, stride, generator))
+            blocks.append(EncoderBlock(2 * d, stride, generator, dtype))
             d *= 2
         self.blocks = nn.ModuleList(blocks)
         self.snake = Snake(d)
-        self.conv_out = _conv1d(d, latent_dim, 3, generator)
+        self.conv_out = _conv1d(d, latent_dim, 3, generator, dtype=dtype)
 
     def forward(self, x):
-        x = self.conv_in(x)
+        x = self.conv_in(*_in_dtype(self.dtype, x))
         for block in self.blocks:
             x = block(x)
-        return self.conv_out(self.snake(x))
+        # latents return to fp32 for the quantizer's codebook math
+        return self.conv_out(self.snake(x)).float()
 
 
 class Decoder(nn.Module):
-    """``(B, latent_dim, T')`` -> ``(B, 1, T' prod(strides))`` in (-1, 1)."""
+    """``(B, latent_dim, T')`` -> fp32 ``(B, 1, T' prod(strides))`` in (-1,
+    1), computed in ``dtype``."""
 
     def __init__(self, latent_dim: int = 256, d_model: int = 1024, strides=(8, 8, 4, 2),
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
-        self.conv_in = _conv1d(latent_dim, d_model, 7, generator)
+        self.dtype = dtype
+        self.conv_in = _conv1d(latent_dim, d_model, 7, generator, dtype=dtype)
         blocks, d = [], d_model
         for stride in strides:
-            blocks.append(DecoderBlock(d, d // 2, stride, generator))
+            blocks.append(DecoderBlock(d, d // 2, stride, generator, dtype))
             d //= 2
         self.blocks = nn.ModuleList(blocks)
         self.snake = Snake(d)
-        self.conv_out = _conv1d(d, 1, 7, generator)
+        self.conv_out = _conv1d(d, 1, 7, generator, dtype=dtype)
 
     def forward(self, z):
-        x = self.conv_in(z)
+        x = self.conv_in(*_in_dtype(self.dtype, z))
         for block in self.blocks:
             x = block(x)
-        return torch.tanh(self.conv_out(self.snake(x)))
+        # the waveform returns to fp32 for the loss stack
+        return torch.tanh(self.conv_out(self.snake(x))).float()
 
 
 def _linear(c_in, c_out, generator):
@@ -288,8 +342,11 @@ class DAC(BaseModel):
 
     The defaults are the published 44.1 kHz configuration; scale
     ``encoder_dim`` and ``decoder_dim`` down for small runs. ``seed`` seeds
-    the initialization. ``BaseModel`` records the constructor arguments, so
-    ``save`` and ``load`` round-trip the configuration with the weights.
+    the initialization. ``dtype`` (e.g. ``torch.bfloat16``) is the encoder's
+    and decoder's compute dtype (module docstring); the parameters, the
+    quantizer and the losses stay fp32. ``BaseModel`` records the
+    constructor arguments, so ``save`` and ``load`` round-trip the
+    configuration, ``dtype`` included, with the weights.
 
     >>> model = DAC().cuda()
     >>> out = model(audio)          # (B, 1, T) -> dict
@@ -300,16 +357,17 @@ class DAC(BaseModel):
     def __init__(self, encoder_dim: int = 64, encoder_rates: Tuple[int, ...] = (2, 4, 8, 8),
                  latent_dim: int = 256, decoder_dim: int = 1024, n_codebooks: int = 9,
                  codebook_size: int = 1024, codebook_dim: int = 8, sample_rate: int = 44100,
-                 seed: int = 0):
+                 seed: int = 0, dtype: torch.dtype = None):
         super().__init__()
         self.encoder_rates, self.sample_rate = tuple(encoder_rates), sample_rate
         self.n_codebooks, self.codebook_size = n_codebooks, codebook_size
+        self.dtype = dtype
         generator = torch.Generator().manual_seed(seed)
-        self.encoder = Encoder(encoder_dim, self.encoder_rates, latent_dim, generator)
+        self.encoder = Encoder(encoder_dim, self.encoder_rates, latent_dim, generator, dtype)
         self.quantizer = ResidualVectorQuantize(latent_dim, n_codebooks, codebook_size,
                                                 codebook_dim, generator)
         self.decoder = Decoder(latent_dim, decoder_dim, tuple(reversed(self.encoder_rates)),
-                               generator)
+                               generator, dtype)
 
     @property
     def hop_length(self):

@@ -8,7 +8,12 @@ frequency bins. Every conv is weight-normalized as flax's ``WeightNorm``
 normalizes (``scale * v / sqrt(sum v^2 + 1e-12)``, the sum over all but the
 output features, ``scale`` starting at ones) and SAME-padded as flax pads
 (the low side gets the smaller half). Every sub-discriminator returns its
-feature maps, the final logit map last.
+feature maps, the final logit map last, in fp32.
+
+``dtype`` (e.g. ``torch.bfloat16``) is flax's compute dtype: the weights are
+normalized in fp32, then every conv casts its input, weight and bias to
+``dtype`` at use; the STFT runs in fp32 and its image is cast before the
+first conv.
 """
 from typing import Sequence, Tuple
 
@@ -17,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fft as _fft
-from .dac import lecun_normal_
+from .dac import _in_dtype, conv_in_dtype, lecun_normal_
 
 __all__ = [
     "BAND_SPLITS",
@@ -48,13 +53,15 @@ def _same_pads(n: int, k: int, s: int):
 
 class WNConv2d(nn.Module):
     """SAME-padded 2-D conv with flax's weight norm (``weight_norm=False``:
-    a plain conv). ``weight`` is the unnormalized kernel ``v`` ``(out, in,
-    kh, kw)``, ``scale`` the per-output-feature gain."""
+    a plain conv), computing in ``dtype`` when given. ``weight`` is the
+    unnormalized kernel ``v`` ``(out, in, kh, kw)``, ``scale`` the
+    per-output-feature gain."""
 
     def __init__(self, c_in: int, c_out: int, kernel: Tuple[int, int],
-                 stride: Tuple[int, int] = (1, 1), weight_norm: bool = True, generator=None):
+                 stride: Tuple[int, int] = (1, 1), weight_norm: bool = True, generator=None,
+                 dtype=None):
         super().__init__()
-        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.kernel, self.stride, self.dtype = tuple(kernel), tuple(stride), dtype
         self.weight = nn.Parameter(torch.empty(c_out, c_in, *self.kernel))
         lecun_normal_(self.weight, c_in * self.kernel[0] * self.kernel[1], generator)
         self.bias = nn.Parameter(torch.zeros(c_out))
@@ -74,27 +81,28 @@ class WNConv2d(nn.Module):
             padding = (h_lo, w_lo)
         else:
             x, padding = F.pad(x, (w_lo, w_hi, h_lo, h_hi)), 0
-        return F.conv2d(x, self.effective_weight(), self.bias, self.stride, padding)
+        return conv_in_dtype(F.conv2d, self.dtype, x, self.effective_weight(), self.bias,
+                             self.stride, padding)
 
 
 class PeriodDiscriminator(nn.Module):
     """One MPD column: ``(B, T)`` folded into ``(B, 1, T / p, p)`` (the end
     padded by repeating the last sample) and judged by a strided conv stack
-    down the time axis."""
+    down the time axis, in ``dtype``."""
 
     def __init__(self, period: int, channels: Sequence[int] = (32, 128, 512, 1024),
-                 weight_norm: bool = True, generator=None):
+                 weight_norm: bool = True, generator=None, dtype=None):
         super().__init__()
-        self.period = period
+        self.period, self.dtype = period, dtype
         layers, c = [], 1
         for ch in channels:
-            layers.append(WNConv2d(c, ch, (5, 1), (3, 1), weight_norm, generator))
+            layers.append(WNConv2d(c, ch, (5, 1), (3, 1), weight_norm, generator, dtype))
             c = ch
         layers.append(WNConv2d(c, channels[-1], (5, 1), weight_norm=weight_norm,
-                               generator=generator))
+                               generator=generator, dtype=dtype))
         self.layers = nn.ModuleList(layers)
         self.logits = WNConv2d(channels[-1], 1, (3, 1), weight_norm=weight_norm,
-                               generator=generator)
+                               generator=generator, dtype=dtype)
 
     def forward(self, x):
         B, T = x.shape
@@ -102,41 +110,45 @@ class PeriodDiscriminator(nn.Module):
         pad = (-T) % p
         if pad:
             x = F.pad(x[:, None], (0, pad), mode="replicate")[:, 0]
-        h = x.reshape(B, 1, -1, p)
+        (h,) = _in_dtype(self.dtype, x.reshape(B, 1, -1, p))
         feats = []
         for layer in self.layers:
             h = F.leaky_relu(layer(h), _LEAK)
             feats.append(h)
         feats.append(self.logits(h))
-        return feats
+        return [f.float() for f in feats]
 
 
 class BandSpectrogramDiscriminator(nn.Module):
     """One MRD column: the complex STFT at ``window_length`` (hop a quarter)
     as a ``(B, 2, frames, bins)`` re/im image, cut into frequency bands, each
     judged by its own conv stack; the bands' last maps are joined along the
-    frequency axis for the logit map."""
+    frequency axis for the logit map. The convs compute in ``dtype``."""
 
     def __init__(self, window_length: int, channels: int = 32,
                  bands: Tuple[Tuple[float, float], ...] = BAND_SPLITS,
-                 stft_method: str = "matmul", weight_norm: bool = True, generator=None):
+                 stft_method: str = "matmul", weight_norm: bool = True, generator=None,
+                 dtype=None):
         super().__init__()
         self.window_length, self.bands, self.stft_method = window_length, tuple(bands), stft_method
+        self.dtype = dtype
 
         def stack():
             convs = [WNConv2d(2 if i == 0 else channels, channels, (3, 9),
-                              (1, 2) if i else (1, 1), weight_norm, generator) for i in range(4)]
+                              (1, 2) if i else (1, 1), weight_norm, generator, dtype)
+                     for i in range(4)]
             convs.append(WNConv2d(channels, channels, (3, 3), weight_norm=weight_norm,
-                                  generator=generator))
+                                  generator=generator, dtype=dtype))
             return nn.ModuleList(convs)
 
         self.band_convs = nn.ModuleList([stack() for _ in self.bands])
-        self.logits = WNConv2d(channels, 1, (3, 3), weight_norm=weight_norm, generator=generator)
+        self.logits = WNConv2d(channels, 1, (3, 3), weight_norm=weight_norm, generator=generator,
+                               dtype=dtype)
 
     def forward(self, x):
         spec = _fft.stft(x, self.window_length, self.window_length // 4, "hann",
                          method=self.stft_method).transpose(-1, -2)  # (B, frames, bins)
-        img = torch.stack([spec.real, spec.imag], dim=1)
+        (img,) = _in_dtype(self.dtype, torch.stack([spec.real, spec.imag], dim=1))
         n_bins = img.shape[-1]
         edges = [int(round(f * n_bins)) for f, _ in self.bands] + [n_bins]
         feats, outs = [], []
@@ -147,27 +159,30 @@ class BandSpectrogramDiscriminator(nn.Module):
                 feats.append(h)
             outs.append(h)
         feats.append(self.logits(torch.cat(outs, dim=-1)))
-        return feats
+        return [f.float() for f in feats]
 
 
 class Discriminator(nn.Module):
     """The DAC discriminator ensemble: MPD at prime periods and MRD at three
     STFT resolutions. Takes ``(B, 1, T)`` or ``(B, T)`` audio and returns one
     feature-map list per sub-discriminator (MPD first), logits last in
-    each. ``seed`` seeds the initialization."""
+    each, all fp32. ``seed`` seeds the initialization; ``dtype`` is the
+    convs' compute dtype (module docstring)."""
 
     def __init__(self, periods: Tuple[int, ...] = (2, 3, 5, 7, 11),
                  fft_sizes: Tuple[int, ...] = (2048, 1024, 512),
                  mpd_channels: Sequence[int] = (32, 128, 512, 1024), mrd_channels: int = 32,
                  bands: Tuple[Tuple[float, float], ...] = BAND_SPLITS,
-                 stft_method: str = "matmul", weight_norm: bool = True, seed: int = 0):
+                 stft_method: str = "matmul", weight_norm: bool = True, seed: int = 0,
+                 dtype: torch.dtype = None):
         super().__init__()
         generator = torch.Generator().manual_seed(seed)
         self.mpd = nn.ModuleList([
-            PeriodDiscriminator(p, tuple(mpd_channels), weight_norm, generator) for p in periods])
+            PeriodDiscriminator(p, tuple(mpd_channels), weight_norm, generator, dtype)
+            for p in periods])
         self.mrd = nn.ModuleList([
             BandSpectrogramDiscriminator(n, mrd_channels, tuple(bands), stft_method,
-                                         weight_norm, generator) for n in fft_sizes])
+                                         weight_norm, generator, dtype) for n in fft_sizes])
 
     def forward(self, audio):
         x = (audio[:, 0, :] if audio.ndim == 3 else audio).float()

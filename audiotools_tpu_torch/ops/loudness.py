@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._hostprof import span
 from . import hopper_kernels
 from .filters import causal_fft_conv1d, fir_from_biquad, iir_cascade_blocked
 
@@ -281,18 +282,19 @@ def host_loudness(audio_data: np.ndarray, sample_rate: int,
     and clamps at -70 LKFS like :func:`loudness`."""
     from scipy.signal import lfilter
 
-    data = np.asarray(audio_data, dtype=dtype)
-    if data.ndim == 1:
-        data = data[None, None, :]
-    elif data.ndim == 2:
-        data = data[None]
-    min_len = int(0.5 * sample_rate)
-    if data.shape[-1] < min_len:
-        data = np.pad(data, ((0, 0), (0, 0), (0, min_len - data.shape[-1])))
-    for (b, a), gain in design_filters(sample_rate, filter_class):
-        data = gain * lfilter(np.asarray(b, dtype), np.asarray(a, dtype), data, axis=-1)
-    lufs = _gated_lufs(torch.from_numpy(np.ascontiguousarray(data)), sample_rate, block_size)
-    return np.maximum(lufs.numpy(), MIN_LOUDNESS).astype(np.float32)
+    with span("salient_meter"):
+        data = np.asarray(audio_data, dtype=dtype)
+        if data.ndim == 1:
+            data = data[None, None, :]
+        elif data.ndim == 2:
+            data = data[None]
+        min_len = int(0.5 * sample_rate)
+        if data.shape[-1] < min_len:
+            data = np.pad(data, ((0, 0), (0, 0), (0, min_len - data.shape[-1])))
+        for (b, a), gain in design_filters(sample_rate, filter_class):
+            data = gain * lfilter(np.asarray(b, dtype), np.asarray(a, dtype), data, axis=-1)
+        lufs = _gated_lufs(torch.from_numpy(np.ascontiguousarray(data)), sample_rate, block_size)
+        return np.maximum(lufs.numpy(), MIN_LOUDNESS).astype(np.float32)
 
 
 def loudness(audio_data: torch.Tensor, sample_rate: int,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._hostprof import span
 from ._fp32 import strict_fp32
 
 __all__ = ["resample_kernels", "polyphase_conv_diff", "resample"]
@@ -101,7 +102,8 @@ def resample(audio, old_sr: int, new_sr: int, zeros: int = 24, rolloff: float = 
     old, new = int(old_sr) // gcd, int(new_sr) // gcd
     kernels, width = resample_kernels(old, new, zeros, rolloff)
     if isinstance(audio, np.ndarray):
-        return _resample_host_impl(audio, old, new, kernels, width)
+        with span("resample"):
+            return _resample_host_impl(audio, old, new, kernels, width)
 
     T = audio.shape[-1]
     batch_shape = audio.shape[:-1]

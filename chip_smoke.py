@@ -85,7 +85,23 @@ runs, on card 0:
    entry points on the CPU (codes, audio beside the card's float64 decode,
    scores, PESQ's delays and STOI's retained frames) and against the
    float64 host STOI and native PESQ, on the reconstructions and on a
-   20 dB-SNR control pair. This path runs none of the five kernels.
+   20 dB-SNR control pair. This path runs none of the five kernels;
+13. the training loop: ``python -m audiotools_tpu_torch.examples.train_dac``'s
+   ``main`` at ``DAC()`` + ``Discriminator()`` full width, batch 16 x 16,384
+   samples from the fixture tree (``AudioDataset`` over 4 loader workers,
+   ``Compose(VolumeNorm, LowPass, ClippingDistortion)`` on the card): 6
+   adversarial steps in fp32 with the ``Tracker`` and the loop's
+   ``Checkpointer`` (keeping 3), saving every 3 steps; fresh models, optimizers and tracker
+   restored from step 3 and run to 6 (the restored state bit-equal to the
+   saved one, fed the same dataset indices as steps 4-6); 3 steps with
+   ``--amp`` (bf16); one step under ``ml.profiling.trace``: ms per step (CUDA
+   events, each loop's first step apart), the share of each step's wall time
+   spent waiting on the loader and the loader's host spans
+   (``data.hostprof``), the checkpoint's size and its save and restore
+   seconds, peak memory in fp32 and bf16, and one more step of the fp32
+   and the bf16 loop under ``torch.profiler`` (device idle share, the
+   kernels that take the most time). This path runs none of the five
+   kernels.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -235,6 +251,14 @@ SERVE_CHECK = 2
 SERVE_BLOCKS = (0.1, 0.7)  # seconds: the StreamingEncoder's push sizes
 SERVE_TOL = {"audio_abs": 2e-6, "margin_rel": 1e-5, "latent_rel": 1e-5, "device_rel": 1e-5,
              "stoi": 5e-4, "pesq": 2e-3, "nsim": 1e-4}
+
+# phase 13: the canonical training loop at full width (its own defaults:
+# 0.38 s at 44.1 kHz, rounded down to the hop, is 16,384 samples)
+LOOP_BATCH = 16
+LOOP_WORKERS = 4
+LOOP_STEPS = 6
+LOOP_CKPT_EVERY = 3
+LOOP_AMP_STEPS = 3
 
 
 def fail(msg):
@@ -1839,6 +1863,278 @@ def phase_serving(root, dev, card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# the training loop
+# ---------------------------------------------------------------------------
+
+
+def _host_tree(obj):
+    """A host copy of a state tree (tensors cloned to the CPU)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_tree(v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+def _tree_mismatches(got, want, path=""):
+    """Paths where two state trees differ (tensors bit for bit)."""
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape and torch.equal(got, want))
+        return [] if same else [path]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path]
+        return [m for k in want for m in _tree_mismatches(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [path]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in _tree_mismatches(g, w, f"{path}/{i}")]
+    return [] if got == want else [path]
+
+
+def _loop_snapshot(params, opt_state, tracker_state):
+    """Both nets' parameters, both AdamW states (moments and step counts) and
+    the tracker's state, copied to the host."""
+    return {"params": {k: _host_tree(m.state_dict()) for k, m in params.items()},
+            "opt_state": {k: _host_tree(o.state_dict()) for k, o in opt_state.items()},
+            "tracker": _host_tree(tracker_state)}
+
+
+def _tracker_cost(dev, metrics, n=50):
+    """Host ms a step that the Tracker adds (``track`` and ``log`` of one
+    step's metrics, tensors on the card already computed), with the display
+    that is installed and with the plain-text one; the display's output is
+    dropped."""
+    import io
+
+    from audiotools_tpu_torch.ml.decorators import Tracker
+
+    values = {k: torch.tensor(float(v), device=dev) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    cost = {}
+    for display in ("installed", "plain"):
+        rich = sys.modules.get("rich", False)
+        if display == "plain":
+            sys.modules["rich"] = None  # import rich fails: the plain display
+        try:
+            tracker = Tracker()
+            step = tracker.log("train")(tracker.track("train", n)(lambda: dict(values)))
+            with contextlib.redirect_stdout(io.StringIO()), tracker.live:
+                t0 = time.perf_counter()
+                for i in range(n):
+                    tracker.step = i
+                    step()
+                cost[f"{display} ({'rich' if tracker.rich else 'plain'})"] = (
+                    (time.perf_counter() - t0) * 1000 / n)
+        finally:
+            if rich is False:
+                sys.modules.pop("rich", None)
+            else:
+                sys.modules["rich"] = rich
+    return cost
+
+
+def phase_training_loop(root, dev, card):
+    """The canonical loop through its entry point: 6 fp32 steps with
+    checkpoints, a resume from step 3 to 6, 3 bf16 steps, one traced step.
+    Launch counts are set to 0 just before each loop and read just after."""
+    import os
+    import shutil
+
+    from audiotools_tpu_torch.data import hostprof
+    from audiotools_tpu_torch.examples import train_dac
+    from audiotools_tpu_torch.ml import profiling
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    t_phase = time.perf_counter()
+    on_card = {"batch": set(), "params": set()}
+    last = {}  # the last step function and batch, for one profiled step after a loop
+    probe = {}  # the running loop's steps, saves and restore
+    snapshots = {}
+    real_build, real_checkpointer = train_dac.build, train_dac.Checkpointer
+
+    def fed(loader):
+        """The loader's batches, each recorded as it arrives: its dataset
+        indices, the seconds the loop waited for it, a CUDA event, and the
+        host seconds until the loop asks for the next one (its save left out)."""
+        batches = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            t1 = time.perf_counter()
+            rec = {"idx": [int(i) for i in batch["idx"]], "wait_s": t1 - t0,
+                   "start": torch.cuda.Event(enable_timing=True), "save_s": 0.0}
+            rec["start"].record()
+            probe["steps"].append(rec)
+            try:
+                yield batch
+            finally:
+                rec["wall_s"] = time.perf_counter() - t1 - rec["save_s"]
+
+    def build(args):
+        """The loop's own build, its loader recorded and its step function
+        checking where the batch lies and marking the step's end."""
+        run = real_build(args)
+        step_fn, prepare = run.step_fn, run.accel.prepare_dataloader
+
+        def checked(audio):
+            on_card["batch"].add(audio.device.type)
+            last.update(step=step_fn, audio=audio)
+            out = step_fn(audio)
+            probe["steps"][-1]["end"] = torch.cuda.Event(enable_timing=True)
+            probe["steps"][-1]["end"].record()
+            return out
+
+        run.step_fn = checked
+        run.accel.prepare_dataloader = lambda *a, **kw: fed(prepare(*a, **kw))
+        return run
+
+    class Checkpointer(real_checkpointer):
+        """The loop's own checkpointer, its saves and restore timed, and the
+        state it saves at step 3 of the fp32 run and restores kept."""
+
+        def save(self, step, params, opt_state=None, tracker=None, **kwargs):
+            t0 = time.perf_counter()
+            folder = super().save(step, params, opt_state, tracker=tracker, **kwargs)
+            seconds = time.perf_counter() - t0
+            probe["saves"].append({"step": step, "seconds": seconds, "bytes": sum(
+                f.stat().st_size for f in folder.iterdir())})
+            if probe["steps"]:
+                probe["steps"][-1]["save_s"] += seconds
+            if probe["snapshot"] and step == LOOP_CKPT_EVERY:
+                snapshots["saved"] = _loop_snapshot(params, opt_state, tracker.state_dict())
+            return folder
+
+        def restore(self, step=None, template=None):
+            t0 = time.perf_counter()
+            state, meta = super().restore(step, template)
+            probe["restored"] = {"step": meta["step"], "data_idx": meta["data_idx"],
+                                 "seconds": time.perf_counter() - t0}
+            snapshots["restored"] = _loop_snapshot(template["params"], template["opt_state"],
+                                                   meta["tracker"])
+            return state, meta
+
+    def loop(label, ckpt_dir, steps, *extra, snapshot=False, profile=False):
+        args = train_dac.parse_args([
+            "--sources", str(root / "spk.csv"), "--steps", str(steps),
+            "--batch-size", str(LOOP_BATCH), "--sample-rate", str(SR),
+            "--num-workers", str(LOOP_WORKERS), "--ckpt-every", str(LOOP_CKPT_EVERY),
+            "--ckpt-dir", str(ckpt_dir), "--adversarial", *extra])
+        probe.clear()
+        probe.update(steps=[], saves=[], restored=None, snapshot=snapshot)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hostprof.reset()
+        hostprof.enable()
+        HK.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            run = train_dac.main(args)
+        finally:
+            hostprof.disable()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(HK.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        spans = hostprof.totals()
+        hostprof.reset()
+        on_card["params"] |= {p.device.type for m in run.params.values() for p in m.parameters()}
+        recs = probe["steps"]
+        ms = [r["start"].elapsed_time(r["end"]) for r in recs]
+        waits = [r["wait_s"] / (r["wait_s"] + r["wall_s"]) for r in recs]
+        history = {k: list(v) for k, v in run.tracker.history["train"].items()}
+        losses = {k: v for k, v in history.items() if k.startswith("loss")}
+        steady = ms[1:] or ms
+        restored = probe["restored"]
+        print(f"[loop {label}] {len(recs)} steps of DAC() + Discriminator(), {LOOP_BATCH} x "
+              f"{run.T}: first step {ms[0]:.3f} ms, then {np.mean(steady):.3f} ms/step (CUDA "
+              f"events: {', '.join(f'{v:.3f}' for v in ms)}) | host wall {wall_s:.2f} s with "
+              f"build and saves | peak {peak / 2**30:.3f} GiB | {card}")
+        print(f"[loop {label}] loader wait share of each step's wall: "
+              f"{', '.join(f'{w:.3f}' for w in waits)}; host spans (s): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(spans.items())))
+        print(f"[loop {label}] saves: " + "; ".join(
+            f"step {sv['step']} {sv['bytes'] / 2**20:.1f} MiB in {sv['seconds']:.2f} s"
+            for sv in probe["saves"]) + (f" | restored step {restored['step']} (data idx "
+                                         f"{restored['data_idx']}) in {restored['seconds']:.2f} s"
+                                         if restored else "")
+              + f" | kernel launches: {launches}")
+        for k, v in losses.items():
+            expect(all(np.isfinite(v)), f"loop {label}: non-finite {k} {v}")
+        if profile:  # one more step of the loop's own step function, profiled
+            prof_wall, busy, n_kernels, rows = profile_step(last["step"], last["audio"])
+            print(f"[loop {label}] profiled step (wall {prof_wall:.3f} ms): {n_kernels} kernels, "
+                  f"{busy:.3f} ms a step, device idle {1 - busy / np.mean(steady):.1%} of the "
+                  f"loop's {np.mean(steady):.3f} ms; by device time: " + "; ".join(
+                      f"{name} {t:.3f} ms x{n}" for name, t, n in rows))
+        last.clear()
+        out = dict(ms=ms, waits=waits, spans=spans, peak=peak, restored=restored,
+                   idx=[r["idx"] for r in recs], history=history, launches=launches,
+                   wall_s=wall_s, T=run.T, steps=run.ckpt.steps())
+        del run
+        return out
+
+    train_dac.build, train_dac.Checkpointer = build, Checkpointer
+    try:
+        res = {"fp32": loop("fp32", root / "loop_a", LOOP_STEPS, snapshot=True, profile=True)}
+        # the run is killed after step 3: its folder holds that step alone
+        shutil.copytree(root / "loop_a" / str(LOOP_CKPT_EVERY),
+                        root / "loop_b" / str(LOOP_CKPT_EVERY), copy_function=os.link)
+        res["resumed"] = loop("resumed", root / "loop_b", LOOP_STEPS)
+        res["bf16"] = loop("bf16", root / "loop_c", LOOP_AMP_STEPS, "--amp", profile=True)
+        with profiling.trace(root / "trace"):
+            res["traced"] = loop("traced", root / "loop_d", 1)
+    finally:
+        train_dac.build, train_dac.Checkpointer = real_build, real_checkpointer
+
+    a, b = res["fp32"], res["resumed"]
+    expect(a["T"] == 16384, f"loop length {a['T']}, not 16,384 samples")
+    expect(a["steps"] == [LOOP_CKPT_EVERY, LOOP_STEPS], f"checkpoints kept {a['steps']}")
+    mismatch = _tree_mismatches(snapshots.get("restored"), snapshots.get("saved"))
+    restored = b["restored"] or {}
+    print(f"[loop] restored state against the state saved at step {LOOP_CKPT_EVERY}: "
+          f"{len(mismatch)} differing entries of parameters, AdamW moments and steps, and "
+          f"tracker history{': ' + ', '.join(mismatch[:5]) if mismatch else ''}; data idx "
+          f"{restored.get('data_idx')} (step 4's first index {a['idx'][LOOP_CKPT_EVERY][0]})")
+    expect(not mismatch and restored.get("step") == LOOP_CKPT_EVERY,
+           f"loop: the restored state differs from the saved one at {mismatch[:5]}")
+    saved_history = (snapshots.get("saved") or {}).get("tracker", {}).get("history", {})
+    live = {k: v[:LOOP_CKPT_EVERY] for k, v in b["history"].items()}
+    expect(live == saved_history.get("train"),
+           "loop: the resumed tracker's first steps differ from the saved history")
+    expect(restored.get("data_idx") == LOOP_CKPT_EVERY * LOOP_BATCH == a["idx"][LOOP_CKPT_EVERY][0],
+           f"loop: resumed at data idx {restored.get('data_idx')}")
+    expect(b["idx"] == a["idx"][LOOP_CKPT_EVERY:],
+           f"loop: the resumed run was fed {b['idx']}, the whole run {a['idx'][LOOP_CKPT_EVERY:]}")
+    for label in ("fp32", "resumed"):
+        counts = {k: len(v) for k, v in res[label]["history"].items()}
+        expect(set(counts.values()) == {LOOP_STEPS}, f"loop {label}: history lengths {counts}")
+    traces = [f for f in (root / "trace").rglob("*.json") if f.stat().st_size > 0]
+    print(f"[loop] trace files: " + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB"
+                                              for f in traces))
+    expect(bool(traces), "loop: profiling.trace wrote no trace file")
+    expect(on_card["batch"] == {"cuda"} and on_card["params"] == {"cuda"},
+           f"loop: batches on {on_card['batch']}, parameters on {on_card['params']}")
+    step_metrics = {k: v[-1] for k, v in a["history"].items() if k != "step"}
+    cost = _tracker_cost(dev, step_metrics)
+    print(f"[loop] Tracker's host cost a step ({len(step_metrics)} scalars, 50 steps): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in cost.items()))
+    fp32_ms, bf16_ms = np.mean(a["ms"][1:]), np.mean(res["bf16"]["ms"][1:])
+    launches = {k: sum(r["launches"][k] for r in res.values()) for k in HK.LAUNCHES}
+    print(f"[loop] bf16 {bf16_ms:.3f} against fp32 {fp32_ms:.3f} ms/step ({bf16_ms / fp32_ms:.3f}x); "
+          f"peak bf16 {res['bf16']['peak'] / 2**30:.3f} against fp32 {a['peak'] / 2**30:.3f} GiB "
+          f"| phase {time.perf_counter() - t_phase:.1f} s | {card}")
+    print(f"[launches] training loop: {launches} (none of the five kernels lies on this path)")
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -1878,6 +2174,7 @@ def main():
         phase_training_card_vs_cpu(train_audio, dev)
         del train_audio
         launches["serving"], _ = phase_serving(root, dev, card)
+        launches["training loop"], _ = phase_training_loop(root, dev, card)
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:

@@ -623,3 +623,86 @@ def test_quality_metrics_on_card_match_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 2e-3
     got = PN.nsim_batch(*card, mode="speech")
     assert float((got.cpu() - PN.nsim_batch(*cpu, mode="speech")).abs().max()) <= 1e-4
+
+
+def test_accelerator_and_bf16_adversarial_step_on_card(cuda, tmp_path):
+    """The Accelerator puts models and batches on the card by default; one
+    adversarial step of the bf16 toy models there leaves fp32 parameters on
+    the card and finite losses; the Checkpointer round-trips the card's
+    modules and optimizers bit for bit, onto the card."""
+    import copy
+
+    from audiotools_tpu_torch import ml
+    from audiotools_tpu_torch.examples.train_dac import TOY_DAC, TOY_DISC, adamw
+    from audiotools_tpu_torch.models import DAC, Discriminator
+    from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+
+    accel = ml.Accelerator(amp=True)
+    assert accel.device.type == "cuda" and accel.num_processes == 1
+    gen = accel.prepare_model(DAC(**TOY_DAC, sample_rate=16000, dtype=torch.bfloat16))
+    disc = accel.prepare_model(Discriminator(**TOY_DISC, dtype=torch.bfloat16, seed=1))
+    opts = {"g": adamw(gen, 1e-4), "d": adamw(disc, 1e-4)}
+    audio = accel.prepare_batch({"x": np.random.RandomState(0).randn(2, 1, 3200)
+                                 .astype(np.float32) * 0.1})["x"]
+    assert audio.device.type == "cuda"
+    metrics = make_adversarial_train_step(gen, disc, opts["g"], opts["d"], 16000)(audio)
+    assert all(bool(torch.isfinite(v)) and v.device.type == "cuda" for v in metrics.values())
+    params = [p for m in (gen, disc) for p in m.parameters()]
+    assert all(p.device.type == "cuda" and p.dtype == torch.float32 for p in params)
+
+    ckpt = ml.Checkpointer(tmp_path)
+    ckpt.save(1, {"g": gen, "d": disc}, opts, data_idx=2)
+    saved = copy.deepcopy({"g": gen.state_dict(), "d": disc.state_dict(),
+                           "og": opts["g"].state_dict(), "od": opts["d"].state_dict()})
+    gen2 = accel.prepare_model(DAC(**TOY_DAC, sample_rate=16000, dtype=torch.bfloat16, seed=5))
+    disc2 = accel.prepare_model(Discriminator(**TOY_DISC, dtype=torch.bfloat16, seed=6))
+    opts2 = {"g": adamw(gen2, 1e-4), "d": adamw(disc2, 1e-4)}
+    make_adversarial_train_step(gen2, disc2, opts2["g"], opts2["d"], 16000)(audio)
+    _, meta = ckpt.restore(template={"params": {"g": gen2, "d": disc2}, "opt_state": opts2})
+    assert meta["data_idx"] == 2
+    got = {"g": gen2.state_dict(), "d": disc2.state_dict(),
+           "og": opts2["g"].state_dict(), "od": opts2["d"].state_dict()}
+    for key in ("g", "d"):
+        for name, tensor in saved[key].items():
+            assert got[key][name].device.type == "cuda" and torch.equal(got[key][name], tensor)
+    for key in ("og", "od"):
+        for i, state in saved[key]["state"].items():
+            for name, tensor in state.items():
+                assert torch.equal(got[key]["state"][i][name].cpu(), tensor.cpu()), (key, i, name)
+
+
+def test_bf16_gap_on_card_is_the_cpus(cuda):
+    """The bf16 path the card runs (cuDNN's bf16 convolutions, bias and
+    Snake in bf16) against the one the CPU runs (fp32 sums of bf16-rounded
+    operands), on one state dict: for the DAC's audio and latents and the
+    discriminators' feature and logit maps, the card's relative L2 distance
+    between bf16 and fp32 is above 0 (the convolutions did run in bf16) and
+    at most 1.5x the CPU's (which ``test_torch_amp`` holds to the JAX
+    package's own gap)."""
+    from audiotools_tpu_torch.models import DAC, Discriminator
+
+    gen = dict(encoder_dim=8, encoder_rates=(2, 4, 4), latent_dim=16, decoder_dim=64,
+               n_codebooks=2, codebook_size=32, codebook_dim=4, sample_rate=16000)
+    disc = dict(periods=(2, 3), fft_sizes=(256, 128), mpd_channels=(4, 8), mrd_channels=4)
+    gen_sd, disc_sd = DAC(**gen).state_dict(), Discriminator(**disc, seed=1).state_dict()
+    x = torch.from_numpy((np.random.RandomState(4).randn(2, 1, 4096) * 0.1).astype(np.float32))
+
+    def outputs(device, dtype):
+        g, d = DAC(**gen, dtype=dtype), Discriminator(**disc, dtype=dtype)
+        g.load_state_dict(gen_sd)
+        d.load_state_dict(disc_sd)
+        g, d, xd = g.to(device), d.to(device), x.to(device)
+        with torch.no_grad():
+            out = {"audio": g(xd)["audio"], "latents": g.encoder(xd),
+                   "maps": torch.cat([f.flatten() for o in d(xd) for f in o])}
+        assert all(v.dtype == torch.float32 and v.device.type == device.type
+                   for v in out.values())
+        return {k: v.double().cpu() for k, v in out.items()}
+
+    def gaps(device):
+        bf16, fp32 = outputs(device, torch.bfloat16), outputs(device, None)
+        return {k: float((bf16[k] - fp32[k]).norm() / fp32[k].norm()) for k in fp32}
+
+    card, cpu = gaps(cuda), gaps(torch.device("cpu"))
+    for name in card:
+        assert 0 < card[name] <= 1.5 * cpu[name], (name, card[name], cpu[name])

@@ -1,10 +1,15 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, and its training
+harness has the JAX package's names.
 
 A fresh interpreter, with ``jax``, ``jaxlib`` and ``audiotools_tpu`` refused
 by a ``sys.meta_path`` finder, imports every module of
 ``audiotools_tpu_torch`` (found by walking the package on disk, so a new
-module is covered without a change here).
+module is covered without a change here). The harness modules' public
+names and signatures are compared with the JAX package's through their
+syntax trees (nothing of the JAX package is imported); the lists below are
+the deliberate differences.
 """
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -49,6 +54,10 @@ print(len(sys.argv) - 1)
     "audiotools_tpu_torch.models.artifacts", "audiotools_tpu_torch.metrics._pesq",
     "audiotools_tpu_torch.metrics.quality", "audiotools_tpu_torch.ops.stoi",
     "audiotools_tpu_torch.ops.pesq", "audiotools_tpu_torch.ops.nsim",
+    "audiotools_tpu_torch._hostprof", "audiotools_tpu_torch.ml.accelerator",
+    "audiotools_tpu_torch.ml.checkpoint", "audiotools_tpu_torch.ml.decorators",
+    "audiotools_tpu_torch.ml.experiment", "audiotools_tpu_torch.ml.profiling",
+    "audiotools_tpu_torch.examples.train_dac",
 ])
 def test_module_list_covers_the_new_modules(module):
     assert module in MODULES
@@ -59,3 +68,70 @@ def test_every_module_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-3000:]
     assert done.stdout.strip() == str(len(MODULES))
+
+
+# the harness modules: names only in the port, and signatures that differ
+HARNESS = ["ml/__init__.py", "ml/accelerator.py", "ml/checkpoint.py", "ml/decorators.py",
+           "ml/experiment.py", "ml/profiling.py", "_hostprof.py"]
+PORT_ONLY = {
+    # the step folders' file names, and the complete steps on disk
+    "ml/checkpoint.py": {"HOST_FILE", "STATE_FILE", "Checkpointer.steps"},
+}
+SIGNATURES = {
+    # a device instead of a mesh and its data axis
+    "Accelerator.__init__": (("self", "amp", "mesh", "data_axis"), ("self", "amp", "device")),
+    # a module instead of a parameter tree; DistributedDataParallel's options
+    "Accelerator.prepare_model": (("self", "params", "rules"),
+                                  ("self", "model", "rules", "**kwargs")),
+    # the optimizer, stepped as torch's GradScaler steps it, instead of a callable
+    "Accelerator.step": (("self", "optimizer_step", "*args", "**kwargs"), ("self", "optimizer")),
+    # torch.profiler has no host tracer level
+    "trace": (("log_dir", "host_tracer_level"), ("log_dir",)),
+}
+
+
+def _public(name):
+    return all(not part.startswith("_") or part.startswith("__") for part in name.split("."))
+
+
+def _surface(path):
+    """Public top-level names and class methods, each with its parameter
+    names (None for a value); imported names count where they are
+    re-exported (a package's ``__init__``, or listed in ``__all__``)."""
+    out, imported, exported = {}, set(), set()
+
+    def params(fn):
+        a = fn.args
+        return (tuple(x.arg for x in a.posonlyargs + a.args + a.kwonlyargs)
+                + ((f"*{a.vararg.arg}",) if a.vararg else ())
+                + ((f"**{a.kwarg.arg}",) if a.kwarg else ()))
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = None
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef):
+                    out[f"{node.name}.{sub.name}"] = params(sub)
+        elif isinstance(node, ast.Assign):
+            out.update({t.id: None for t in node.targets if isinstance(t, ast.Name)})
+            if any(isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+                exported = set(ast.literal_eval(node.value))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            imported |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    if path.name == "__init__.py":
+        exported = imported
+    out.update({name: None for name in imported & exported})
+    return {k: v for k, v in out.items() if _public(k)}
+
+
+@pytest.mark.parametrize("module", HARNESS)
+def test_harness_has_the_jax_packages_names(module):
+    jax_names = _surface(ROOT / "audiotools_tpu" / module)
+    port_names = _surface(ROOT / "audiotools_tpu_torch" / module)
+    assert sorted(set(jax_names) - set(port_names)) == []
+    assert set(port_names) - set(jax_names) == PORT_ONLY.get(module, set())
+    for name in sorted(set(jax_names) & set(port_names)):
+        if jax_names[name] != port_names[name]:
+            assert SIGNATURES.get(name) == (jax_names[name], port_names[name]), name

@@ -382,7 +382,7 @@ def test_dac_folder_roundtrip(jax_model, port, audio, jax_codes, tmp_path):
                                                   "opt.pth"}
     for package in (True, False):
         back, extra = DAC.load_from_folder(tmp_path, package=package, device="cpu")
-        assert back.metadata["kwargs"] == dict(TINY, encoder_rates=(2, 4, 4), seed=0)
+        assert back.metadata["kwargs"] == dict(TINY, encoder_rates=(2, 4, 4), seed=0, dtype=None)
         assert _same_weights(port, back)
         assert extra["tracker.pth"] == {"step": 5} and torch.equal(extra["opt.pth"]["m"], torch.ones(3))
         assert np.array_equal(PA.compress(back, audio)["codes"], jax_codes)
