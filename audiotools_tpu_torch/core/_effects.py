@@ -4,10 +4,14 @@ band split, pitch shift and time stretch, percentile clipping, (mu-law)
 quantization and the PCM codec presets.
 
 Counterpart of ``audiotools_tpu/core/_effects.py``. Every effect is
-batched and runs on the signal's device. The compressed codecs (MP3,
-Vorbis, GSM, AMR-NB) need a host codec layer this package does not have
-yet, and raise.
+batched and runs on the signal's device, apart from the compressed codecs
+(MP3, Vorbis/Ogg, GSM-FR, AMR-NB): those take one device-to-host copy of
+the batch through the host codec libraries (``io.codecs``, ``io.amrnb``)
+and return to the signal's device; the telephone codecs' resamples to and
+from 8 kHz run on the device.
 """
+import tempfile
+
 import numpy as np
 import torch
 
@@ -27,7 +31,7 @@ class EffectMixin:
         "Ogg": {"format": "ogg", "compression": -1},
         "Amr-nb": {"format": "amr-nb"},
     }
-    """The original library's codec presets; only the ``wav`` ones run here."""
+    """The original library's codec presets."""
 
     def mix(self, other, snr=10, other_eq=None):
         """Mix ``other`` into this signal at ``snr`` dB below its loudness,
@@ -184,7 +188,12 @@ class EffectMixin:
         """Round-trip through a codec: a ``preset`` of ``CODEC_PRESETS`` or
         the format given. ``wav`` runs on the device as uniform quantization
         at ``bits_per_sample`` (16 by default), or mu-law with ``encoding
-        "ULAW"`` (8 by default); other formats raise ``RuntimeError``."""
+        "ULAW"`` (8 by default). ``mp3``, ``vorbis``/``ogg``, ``gsm`` and
+        ``amr-nb`` run the host codecs on one device-to-host copy of the
+        batch (MP3 realigned past its codec delay; GSM and AMR-NB at 8 kHz,
+        resampled on the device) and put the result back on the signal's
+        device. A codec whose system library is missing raises
+        ``RuntimeError``."""
         if preset is None:
             kwargs = dict(format=format, encoding=encoding, bits_per_sample=bits_per_sample,
                           compression=compression)
@@ -194,12 +203,79 @@ class EffectMixin:
             raise ValueError(f"Unknown preset: {preset}. "
                              f"Known presets: {list(self.CODEC_PRESETS.keys())}")
         fmt = kwargs.get("format", "wav")
-        if fmt != "wav":
-            raise RuntimeError(f"Codec format '{fmt}' needs a host codec layer this package "
-                               "does not have yet; native support: wav (PCM, ULAW).")
-        if kwargs.get("encoding") == "ULAW":
-            return self.mulaw_quantization(2 ** (kwargs.get("bits_per_sample") or 8))
-        return self.quantization(2 ** (kwargs.get("bits_per_sample") or 16))
+        if fmt == "wav":
+            if kwargs.get("encoding") == "ULAW":
+                return self.mulaw_quantization(2 ** (kwargs.get("bits_per_sample") or 8))
+            return self.quantization(2 ** (kwargs.get("bits_per_sample") or 16))
+        from ..io import amrnb, codecs
+
+        compression = kwargs.get("compression")
+        if fmt == "mp3":
+            if not codecs.mp3_available():
+                raise RuntimeError("MP3 codec libraries not available")
+            # sox's compression semantics for mp3: negative = LAME VBR
+            # quality (integer part, 9 = worst), positive = CBR kbps,
+            # None = the encoder's default
+            enc_kwargs = {}
+            if compression is not None:
+                c = float(compression)
+                if c < 0:
+                    enc_kwargs["vbr_quality"] = min(9, int(-c))
+                else:
+                    enc_kwargs["bitrate"] = max(8, int(round(c)))
+            return self._host_codec_roundtrip(
+                lambda item: _mp3_roundtrip(item, self.sample_rate, enc_kwargs))
+        if fmt == "gsm":
+            if not codecs.gsm_available():
+                raise RuntimeError("GSM codec library not available")
+            return self._telephone_codec_roundtrip(
+                lambda host: np.stack([codecs.gsm_roundtrip(item) for item in host]))
+        if fmt in ("vorbis", "ogg"):
+            if not (codecs.vorbis_encode_available() and codecs.vorbis_available()):
+                raise RuntimeError("Vorbis codec libraries not available")
+            # sox's vorbis quality scale over 10, clamped to libvorbisenc's
+            # [-0.1, 1.0]; sox's default is 3
+            quality = float(np.clip((3.0 if compression is None else compression) / 10.0,
+                                    -0.1, 1.0))
+            return self._host_codec_roundtrip(
+                lambda item: _ogg_roundtrip(item, self.sample_rate, quality))
+        if fmt == "amr-nb":
+            return self._telephone_codec_roundtrip(amrnb.amrnb_roundtrip_batch)
+        raise RuntimeError(
+            f"Codec format '{fmt}' requires external codec libraries that are not "
+            "available; native support: wav (PCM/ULAW), mp3, ogg/vorbis, gsm, amr-nb."
+        )
+
+    def _host_codec_roundtrip(self, roundtrip):
+        """Run ``roundtrip`` ((C, T) numpy -> (C, >= T)) on each item of one
+        host copy of the batch, keep ``T`` samples (zero-padded where the
+        codec returns fewer) and put the batch back on the signal's device."""
+        T = self.signal_length
+        host = self.audio_data.detach().cpu().numpy()
+        out = []
+        for item in host:
+            dec = roundtrip(item)
+            if dec.shape[-1] < T:
+                dec = np.pad(dec, ((0, 0), (0, T - dec.shape[-1])))
+            out.append(dec[:, :T])
+        self.audio_data = torch.from_numpy(np.stack(out)).to(self.audio_data.device)
+        return self
+
+    def _telephone_codec_roundtrip(self, roundtrip):
+        """Shared scaffolding of the 8 kHz mono telephone codecs (GSM-FR,
+        AMR-NB): resample down on the device, run the host ``roundtrip``
+        (``(B, C, T)`` numpy in and out: the ACELP coder codes the batch in
+        one lockstep pass, libgsm item by item) on one host copy of the
+        batch, resample back on the device, and restore the length."""
+        orig_sr, T = self.sample_rate, self.signal_length
+        self.resample(8000)
+        out = roundtrip(self.audio_data.detach().cpu().numpy())
+        self.audio_data = torch.from_numpy(np.asarray(out, np.float32)).to(self.audio_data.device)
+        self.resample(orig_sr)
+        if self.signal_length < T:
+            self.zero_pad(0, T - self.signal_length)
+        self.truncate_samples(T)
+        return self
 
     def clip_distortion(self, clip_percentile):
         """Clip each item to its ``clip_percentile / 2`` and ``1 -
@@ -233,7 +309,10 @@ class EffectMixin:
         x = torch.sign(x) * torch.log1p(mu * torch.abs(x)) / torch.log1p(mu)
         x = ((x + 1) / 2 * mu + 0.5).to(torch.int32).float()  # truncation, as astype
         x = (x / mu) * 2 - 1.0
-        x = torch.sign(x) * (torch.exp(torch.abs(x) * torch.log1p(mu)) - 1.0) / mu
+        # exp in float64, rounded once: the CPU's float32 exp gave results up
+        # to ~190 ulps apart from one process to the next for one input
+        expanded = torch.exp((torch.abs(x) * torch.log1p(mu)).double()).float()
+        x = torch.sign(x) * (expanded - 1.0) / mu
         self.audio_data = self.audio_data - (self.audio_data - x).detach()
         return self
 
@@ -311,3 +390,30 @@ class ImpulseResponseMixin:
         alpha = torch.maximum(alpha, min_alpha)[..., None]
         self.audio_data = early_response * (1 + (alpha - 1) * window) + late_field
         return self.ensure_max_of_audio()
+
+
+def _mp3_roundtrip(orig, sample_rate, enc_kwargs):
+    """One ``(C, T)`` item through lame and mpg123, with the codec delay
+    found by cross-correlating the first channels and trimmed, so that the
+    augmentation stays time-aligned with its input."""
+    from ..io import codecs
+
+    T = orig.shape[-1]
+    with tempfile.NamedTemporaryFile(suffix=".mp3") as f:
+        codecs.write_mp3(f.name, orig, sample_rate, **enc_kwargs)
+        dec, _ = codecs.read_mp3(f.name)
+    n = 1 << int(np.ceil(np.log2(dec.shape[-1] + T)))
+    xc = np.fft.irfft(np.fft.rfft(dec[0], n) * np.conj(np.fft.rfft(orig[0], n)), n)
+    lag = int(np.argmax(xc[: dec.shape[-1] - T + 1])) if dec.shape[-1] > T else 0
+    return dec[:, lag:]
+
+
+def _ogg_roundtrip(orig, sample_rate, quality):
+    """One ``(C, T)`` item through libvorbisenc and libvorbisfile. Vorbis is
+    granulepos-aligned: the decode is sample-accurate, with no delay."""
+    from ..io import codecs
+
+    with tempfile.NamedTemporaryFile(suffix=".ogg") as f:
+        codecs.write_ogg(f.name, orig, sample_rate, quality)
+        dec, _ = codecs.read_ogg(f.name)
+    return dec

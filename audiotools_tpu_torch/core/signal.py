@@ -1,10 +1,8 @@
 """AudioSignal: a batch of audio as one ``(B, C, T)`` tensor.
 
 Counterpart of ``audiotools_tpu/core/signal.py`` without its JAX pytree
-plumbing and the display, playback, ffmpeg and whisper mixins. The class
-holds tensors and host
-metadata and no parameters, so it is a plain class (not an
-``nn.Module``). A signal built from a path or an array goes to the card
+plumbing. The class holds tensors and host metadata and no parameters,
+so it is a plain class (not an ``nn.Module``). A signal built from a path or an array goes to the card
 unless it is given ``device="cpu"``; the data loader decodes on the host
 and moves each collated batch to the card.
 """
@@ -22,7 +20,11 @@ import torch.nn.functional as F
 from . import util
 from ._dsp import DSPMixin, _polar
 from ._effects import EffectMixin, ImpulseResponseMixin
+from .display import DisplayMixin
+from .ffmpeg import FFMPEGMixin
 from .loudness import LoudnessMixin
+from .playback import PlayMixin
+from .whisper import WhisperMixin
 from ..ops import fft as _fft
 from ..ops import resample as _resample
 from ..ops._fp32 import strict_fp32
@@ -41,7 +43,8 @@ def _value(other):
     return other.audio_data if isinstance(other, AudioSignal) else other
 
 
-class AudioSignal(EffectMixin, LoudnessMixin, ImpulseResponseMixin, DSPMixin):
+class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, DSPMixin,
+                  DisplayMixin, FFMPEGMixin, WhisperMixin):
     """Batched audio with its sample rate.
 
     >>> signal = AudioSignal(np.zeros(44100, np.float32), 44100)  # on the card

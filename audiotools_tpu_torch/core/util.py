@@ -1,8 +1,8 @@
 """Core utilities: seeding, source manifests, tensors, batch collation and
-staging, and the chord fixture.
+staging, figure styling, and the chord fixture.
 
-Counterpart of ``audiotools_tpu/core/util.py`` without its plotting and
-the TPU's mask sentinel. Randomness stays host-side numpy
+Counterpart of ``audiotools_tpu/core/util.py`` without the TPU's mask
+sentinel. Randomness stays host-side numpy
 (``RandomState``) with the JAX package's draw order, so both packages draw
 identical parameters for a batch.
 """
@@ -11,7 +11,7 @@ import math
 import numbers
 import os
 import random
-from contextlib import contextmanager
+from contextlib import contextmanager, suppress
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
@@ -21,7 +21,7 @@ import torch
 
 from .._hostprof import span
 
-AUDIO_EXTENSIONS = [".wav"]
+AUDIO_EXTENSIONS = [".wav", ".flac", ".mp3", ".ogg"]
 
 
 def flatten(d: dict, parent: tuple = ()) -> dict:
@@ -354,6 +354,82 @@ def from_numpy_tree(tree, device):
     return prepare_batch(walk(tree), device)
 
 
+# -----------------------------------------------------------------------------
+# plotting (as the JAX package's util.format_figure)
+# -----------------------------------------------------------------------------
+
+BASE_SIZE = 864
+DEFAULT_FIG_SIZE = (9, 3)
+
+
+def _inset_tick_labels(host_ax, ax, axis: str, color: str, fontsize: float):
+    """Redraw one axis' tick labels as translucent in-plot annotations.
+
+    Tick values come from ``ax`` but the text artists land on ``host_ax``
+    (the figure's first axes) so stacked subplots label once. The first
+    two ticks and the last are dropped: edge labels would collide with the
+    figure border once the real axes are hidden.
+    """
+    if axis == "y":
+        anchor = ax.get_xlim()[0]  # pin labels to the left edge
+        keep = ax.get_yticks()[2:-1]
+    else:
+        anchor = ax.get_ylim()[0]  # pin labels to the bottom edge
+        keep = ax.get_xticks()[2:-1]
+
+    for value in keep:
+        if axis == "y":
+            xy = (anchor, value)
+            text = f"{value / 1000:2.1f}k"  # Hz -> kHz
+            offset, ha, va = (5, -5), "left", "top"
+        else:
+            xy = (value, anchor)
+            text = f"{value:2.1f}s"
+            offset, ha, va = (5, 5), "center", "bottom"
+        host_ax.annotate(text, xy=xy, xycoords="data", xytext=offset, textcoords="offset points",
+                         ha=ha, va=va, color=color, fontsize=fontsize, alpha=0.75)
+
+
+def format_figure(fig_size: tuple = None, title: str = None, fig=None,
+                  format_axes: bool = True, format: bool = True, font_color: str = "white"):
+    """Borderless audio-plot styling: hide the matplotlib chrome, redraw
+    tick labels *inside* the data area, and optionally inset a boxed title
+    in the top-right corner. Used by specshow/waveplot/wavespec in
+    ``core/display.py``; ``format=False`` skips styling entirely.
+    matplotlib is imported here, not with the module."""
+    import matplotlib.pyplot as plt
+
+    if not format:
+        return
+    if fig is None:
+        fig = plt.gcf()
+    fig.set_size_inches(*(fig_size or DEFAULT_FIG_SIZE))
+    if not fig.axes:
+        return
+    host_ax = fig.axes[0]
+
+    # Scale fonts with rendered width so labels stay readable at any dpi.
+    width_px = fig.get_size_inches()[0] * fig.dpi
+    scale = width_px / BASE_SIZE
+
+    if format_axes:
+        for ax in fig.axes:
+            _inset_tick_labels(host_ax, ax, "y", font_color, 12 * scale)
+            _inset_tick_labels(host_ax, ax, "x", font_color, 12 * scale)
+            # Data fills the whole canvas: no margins, spines, or ticks.
+            ax.margins(0, 0)
+            ax.set_axis_off()
+            ax.xaxis.set_major_locator(plt.NullLocator())
+            ax.yaxis.set_major_locator(plt.NullLocator())
+        plt.subplots_adjust(top=1, bottom=0, right=1, left=0, hspace=0, wspace=0)
+
+    if title is not None:
+        label = host_ax.annotate(title, xy=(1, 1), xycoords="axes fraction", xytext=(-5, -5),
+                                 textcoords="offset points", ha="right", va="top", color="white",
+                                 fontsize=20 * scale)
+        label.set_bbox(dict(facecolor="black", edgecolor="black", alpha=0.5))
+
+
 _NOTE_OFFSETS = {"C": 0, "D": 2, "E": 4, "F": 5, "G": 7, "A": 9, "B": 11}
 
 
@@ -406,3 +482,16 @@ def generate_chord_dataset(max_voices: int = 8, sample_rate: int = 44100, num_it
         column = [str(track[name].path_to_file) if name in track else "" for track in tracks]
         create_csv(column, output_dir / f"{name}.csv", loudness=True)
     return output_dir
+
+
+@contextmanager
+def _close_temp_files(tmpfiles: list):
+    """Close and unlink temp files when the block exits, whether by
+    success or error."""
+    try:
+        yield
+    finally:
+        for handle in tmpfiles:
+            with suppress(Exception):
+                handle.close()
+                os.unlink(handle.name)

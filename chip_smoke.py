@@ -102,6 +102,24 @@ runs, on card 0:
    and the bf16 loop under ``torch.profiler`` (device idle share, the
    kernels that take the most time). This path runs none of the five
    kernels.
+14. host I/O and codecs: the native WAV, FLAC and libav libraries built
+   with g++ from ``audiotools_tpu_torch/native`` (seconds each), the system
+   codec libraries present (mp3, vorbis, vorbis-encode, gsm, av, and the
+   ``ffmpeg`` binary), 64 clips of 5 s at 44.1 kHz written in every format
+   present (WAV PCM_16 and FLOAT, FLAC 16- and 24-bit, MP3, Ogg, M4A), each
+   loaded through ``AudioDataset`` -> ``DataLoader`` (8 worker threads) onto
+   the card: first batch's seconds and clips/s by host clock, the card's
+   batch against the CPU's decode and the lossless formats against the
+   source's quantization, bit for bit; ``native.read_batch`` against
+   per-file ``read_wav``; every ``apply_codec`` preset (8-bit, MP3, Vorbis,
+   Ogg, GSM-FR, Amr-nb) on the staged batch: ms a batch by host clock, the
+   device part (the resamples) by CUDA events, the card against the CPU (bit
+   for bit through the file codecs, stage by stage around the telephone
+   codecs); the ffmpeg mixin's routes on the card (``ffmpeg_loudness``,
+   ``ffmpeg_resample``, ``load_from_file_with_ffmpeg``) and ``write`` in
+   every format from a card signal, read back. A format or preset whose
+   system library is absent is printed as absent and not run. This path
+   runs none of the five kernels.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -259,6 +277,30 @@ LOOP_WORKERS = 4
 LOOP_STEPS = 6
 LOOP_CKPT_EVERY = 3
 LOOP_AMP_STEPS = 3
+
+# phase 14: host I/O and codecs. 64 clips of 5 s at 44.1 kHz in every format
+# the machine can write, each loaded through AudioDataset -> DataLoader (8
+# worker threads) onto the card, and the staged batch through every
+# apply_codec preset. Decoding is host code, so the card's batches equal the
+# CPU's decode bit for bit, and WAV and FLAC the int16/int24 (or float32)
+# quantization of the source. MP3, Vorbis and Ogg give the card's batch the
+# CPU's bits (the host codec gets the same bytes). GSM-FR and Amr-nb are held
+# stage by stage from one input: the 8 kHz resample on the card within the
+# resample's 1e-5 pin (tests/test_torch_ops.py) of the CPU's, the codec fed
+# the card's 8 kHz audio equal to the preset on the card, the resample back
+# within 1e-5. The 8-bit preset is mu-law: samples within rounding of a
+# level's edge move by a level, so it is judged as the zoo's quantizers are.
+# ffmpeg_loudness meters a 16-bit file of each item: equal within 1e-4 dB to
+# loudness() of that file, within 0.2 dB (the JAX package's pin) of the
+# in-memory loudness
+IO_BATCH = 64
+IO_SECONDS = 5.0
+IO_WORKERS = 8
+IO_FORMATS = (("wav_pcm16", ".wav", "PCM_16"), ("wav_float", ".wav", "FLOAT"),
+              ("flac16", ".flac", "PCM_16"), ("flac24", ".flac", "PCM_24"),
+              ("mp3", ".mp3", None), ("ogg", ".ogg", None), ("m4a", ".m4a", None))
+IO_PRESETS = ("8-bit", "MP3", "Vorbis", "Ogg", "GSM-FR", "Amr-nb")
+IO_TOL = {"resample_abs": 1e-5, "lufs_db": 1e-4, "lufs_file_db": 0.2}
 
 
 def fail(msg):
@@ -2135,6 +2177,255 @@ def phase_training_loop(root, dev, card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# host I/O and codecs
+# ---------------------------------------------------------------------------
+
+
+def _io_availability():
+    """{name: present} for the system codec libraries, libav and ffmpeg."""
+    from audiotools_tpu_torch import native
+    from audiotools_tpu_torch.core.ffmpeg import ffmpeg_available
+    from audiotools_tpu_torch.io import codecs
+
+    return {"mp3": codecs.mp3_available(), "vorbis": codecs.vorbis_available(),
+            "vorbis-encode": codecs.vorbis_encode_available(), "gsm": codecs.gsm_available(),
+            "av": native.av_available(), "ffmpeg binary": ffmpeg_available()}
+
+
+def _format_present(suffix, have):
+    return {".mp3": have["mp3"], ".ogg": have["vorbis"] and have["vorbis-encode"],
+            ".m4a": have["av"]}.get(suffix, True)
+
+
+def _preset_present(preset, have):
+    return {"MP3": have["mp3"], "Vorbis": have["vorbis"] and have["vorbis-encode"],
+            "Ogg": have["vorbis"] and have["vorbis-encode"], "GSM-FR": have["gsm"]}.get(preset,
+                                                                                      True)
+
+
+def _quantized(x, subtype):
+    """What a lossless file of ``subtype`` holds for float32 ``x``."""
+    if subtype == "FLOAT":
+        return x
+    scale = float(1 << (23 if subtype == "PCM_24" else 15))
+    return (np.clip(np.rint(x.astype(np.float64) * scale), -scale, scale - 1) / scale).astype(
+        np.float32)
+
+
+def _sig_err(a, b):
+    return float((a.audio_data.cpu() - b.audio_data.cpu()).abs().max())
+
+
+def phase_host_io(root, dev, card):
+    """The port's host layers on the card: the native libraries' build, the
+    codec libraries present, a fixture tree in every format loaded through
+    AudioDataset -> DataLoader onto the card, every apply_codec preset on the
+    staged batch (card against CPU), and the ffmpeg mixin's native routes.
+    Launch counts are set to 0 just before and read just after (this path
+    runs none of the five kernels)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audiotools_tpu_torch import AudioSignal, _build, native
+    from audiotools_tpu_torch import io as pio
+    from audiotools_tpu_torch.data import DataLoader
+    from audiotools_tpu_torch.data.datasets import AudioDataset, AudioLoader
+    from audiotools_tpu_torch.io import amrnb, codecs
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    HK.reset_launch_counts()
+    t_phase = time.perf_counter()
+    res = {"formats": {}, "presets": {}, "absent": []}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one g++ each, all started together
+        list(pool.map(lambda f: f(), (native.get_library, native.get_flac_library,
+                                      native.av_available)))
+    built = {name: (f"{_build.BUILD_SECONDS[name]:.2f} s" if name in _build.BUILD_SECONDS
+                    else "cached" if _build.host_library_path(name).exists()
+                    else "not built (libav absent)") for name in ("wavio", "flacio", "avio")}
+    print(f"[io build] g++ at first use, all started together: {time.perf_counter() - t0:.2f} s | "
+          + ", ".join(f"{name} {v}" for name, v in built.items()))
+    have = _io_availability()
+    print("[io availability] " + ", ".join(f"{k}: {'present' if v else 'absent'}"
+                                          for k, v in have.items()))
+
+    sources = np.stack([speech_like(500 + i, IO_SECONDS) for i in range(IO_BATCH)])[:, None]
+    folders = {}
+    t0 = time.perf_counter()
+    for label, suffix, subtype in IO_FORMATS:
+        if not _format_present(suffix, have):
+            res["absent"].append(f"format {label}")
+            print(f"[io fixtures] {label}: absent (no system library), not run")
+            continue
+        folders[label] = root / "io" / label
+        folders[label].mkdir(parents=True)
+        with ThreadPoolExecutor(max_workers=IO_WORKERS) as pool:
+            list(pool.map(lambda i: pio.save_audio(
+                folders[label] / f"clip_{i:02d}{suffix}", sources[i], SR,
+                **({"subtype": subtype} if subtype else {})), range(IO_BATCH)))
+    print(f"[io fixtures] {IO_BATCH} clips of {IO_SECONDS:g} s at {SR} Hz in {len(folders)} "
+          f"formats: {time.perf_counter() - t0:.2f} s")
+
+    staged = None
+    for label, suffix, subtype in IO_FORMATS:
+        if label not in folders:
+            continue
+        ds = AudioDataset(AudioLoader(sources=[str(folders[label])], ext=[suffix]),
+                          sample_rate=SR, n_examples=IO_BATCH, duration=IO_SECONDS)
+        t0 = time.perf_counter()
+        batch = next(iter(DataLoader(ds, batch_size=IO_BATCH, num_workers=IO_WORKERS)))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        sig = batch["signal"]
+        want = AudioDataset.collate([ds[i] for i in range(IO_BATCH)])["signal"]
+        equal = torch.equal(sig.audio_data.cpu(), want.audio_data)
+        line = (f"[io load] {label}: first batch {first_s:.3f} s, {IO_BATCH / first_s:.1f} clips/s "
+                f"(host clock, {IO_WORKERS} worker threads, staged on {sig.device}); shape "
+                f"{tuple(sig.shape)}; card batch == CPU decode bit for bit: {equal}")
+        expect(sig.device.type == "cuda", f"io {label}: the batch is on {sig.device}")
+        expect(equal, f"io {label}: the card's batch differs from the CPU's decode")
+        expect(sig.signal_length == int(IO_SECONDS * SR), f"io {label}: length {sig.shape}")
+        if subtype is not None:  # lossless: the quantization of the source
+            idx = [int(Path(p).stem.split("_")[1]) for p in batch["path"]]
+            lossless = _quantized(sources[idx], subtype)
+            same = np.array_equal(sig.audio_data.cpu().numpy(), lossless)
+            line += f"; equals the source's {subtype} quantization: {same}"
+            expect(same, f"io {label}: not the {subtype} quantization of the source")
+            if label == "wav_pcm16":
+                staged = sig
+        print(line)
+        res["formats"][label] = {"first_batch_s": first_s, "clips_per_s": IO_BATCH / first_s}
+
+    wavs = sorted(folders["wav_pcm16"].glob("*.wav"))
+    t0 = time.perf_counter()
+    batch_out, _ = native.read_batch(wavs, [0.0] * len(wavs), [IO_SECONDS] * len(wavs))
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [native.read_wav(p)[0] for p in wavs]
+    single_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(batch_out, single))
+    print(f"[io read_batch] {len(wavs)} WAVs of {IO_SECONDS:g} s: native.read_batch {batch_s * 1e3:.2f} ms, "
+          f"per-file read_wav {single_s * 1e3:.2f} ms ({single_s / batch_s:.2f}x; host clock); "
+          f"equal: {same}")
+    expect(same, "io: read_batch differs from per-file read_wav")
+    res["read_batch_ms"], res["read_wav_ms"] = batch_s * 1e3, single_s * 1e3
+
+    host_x = staged.audio_data.cpu().numpy()
+    for preset in IO_PRESETS:
+        if not _preset_present(preset, have):
+            res["absent"].append(f"preset {preset}")
+            print(f"[io preset] {preset}: absent (no system library), not run")
+            continue
+        sig = staged.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sig.apply_codec(preset)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect(out.device.type == "cuda", f"io {preset}: output on {out.device}")
+        expect(out.shape == staged.shape, f"io {preset}: shape {out.shape}")
+        cpu = AudioSignal(host_x, SR, device="cpu")
+        line = f"[io preset] {preset}: {ms:.1f} ms a batch of {IO_BATCH} x {IO_SECONDS:g} s (host clock)"
+        if preset == "8-bit":
+            device_ms = time_ms(lambda: staged.clone().apply_codec(preset), N_ITER)
+            diff = (out.audio_data.cpu() - cpu.apply_codec(preset).audio_data).abs()
+            share = float((diff > ZOO_ABS).float().mean())
+            line += (f"; device (all of it) {device_ms:.3f} ms (CUDA events); card vs CPU: share "
+                     f"of samples off by more than {ZOO_ABS:g}: {share:.2e} (tol {ZOO_SHARE:g})")
+            expect(share <= ZOO_SHARE, f"io 8-bit: card vs CPU share {share:.2e}")
+        elif preset in ("MP3", "Vorbis", "Ogg"):
+            equal = torch.equal(out.audio_data.cpu(), cpu.apply_codec(preset).audio_data)
+            device_ms = 0.0
+            line += f"; device: none (one copy each way); card == CPU bit for bit: {equal}"
+            expect(equal, f"io {preset}: the card's result differs from the CPU's")
+        else:
+            down = staged.clone().resample(8000)
+            down_err = _sig_err(down, AudioSignal(host_x, SR, device="cpu").resample(8000))
+            host8 = down.audio_data.cpu().numpy()
+            t0 = time.perf_counter()
+            coded = (amrnb.amrnb_roundtrip_batch(host8) if preset == "Amr-nb"
+                     else np.stack([codecs.gsm_roundtrip(item) for item in host8]))
+            codec_s = time.perf_counter() - t0
+            coded = torch.from_numpy(np.asarray(coded, np.float32))
+            up = AudioSignal(coded.to(dev), 8000).resample(SR)
+            up.zero_pad(0, max(0, staged.signal_length - up.signal_length))
+            up.truncate_samples(staged.signal_length)
+            cpu_up = AudioSignal(coded.numpy(), 8000, device="cpu").resample(SR)
+            cpu_up.zero_pad(0, max(0, staged.signal_length - cpu_up.signal_length))
+            cpu_up.truncate_samples(staged.signal_length)
+            up_err = _sig_err(up, cpu_up)
+            same = torch.equal(out.audio_data, up.audio_data)
+            down_ms = time_ms(lambda: staged.clone().resample(8000), N_ITER)
+            up_ms = time_ms(lambda: AudioSignal(coded.to(dev), 8000).resample(SR), N_ITER)
+            device_ms = down_ms + up_ms
+            line += (f"; device (the resamples) {down_ms:.3f} + {up_ms:.3f} ms (CUDA events); host "
+                     f"codec {codec_s * 1e3:.1f} ms; card vs CPU: 8 kHz resample {down_err:.2e}, "
+                     f"resample back {up_err:.2e} (tol {IO_TOL['resample_abs']:g}); the codec "
+                     f"fed the card's 8 kHz audio == the preset on the card: {same}")
+            expect(down_err <= IO_TOL["resample_abs"], f"io {preset}: 8 kHz resample {down_err:.2e}")
+            expect(up_err <= IO_TOL["resample_abs"], f"io {preset}: resample back {up_err:.2e}")
+            expect(same, f"io {preset}: the preset differs from its stages")
+        print(line + f" | {card}")
+        res["presets"][preset] = {"ms": ms, "device_ms": device_ms}
+
+    checked = staged[list(range(N_CHECK))]
+    lufs = checked.clone().ffmpeg_loudness()
+    route = "ffmpeg binary" if have["ffmpeg binary"] else "native (BS.1770 meter on the card)"
+    file_lufs, file_gap = [], 0.0
+    for i in range(N_CHECK):
+        checked[i].write(root / "io" / f"meter_{i}.wav")
+        file_lufs.append(float(AudioSignal(root / "io" / f"meter_{i}.wav").loudness()[0]))
+    file_gap = max(abs(float(lufs[i]) - file_lufs[i]) for i in range(N_CHECK))
+    mem_gap = float((lufs - checked.clone().loudness()).abs().max())
+    tol = IO_TOL["lufs_file_db"] if have["ffmpeg binary"] else IO_TOL["lufs_db"]
+    print(f"[io ffmpeg] route: {route}; ffmpeg_loudness on {lufs.device}: "
+          f"{[round(float(v), 4) for v in lufs]} LUFS; against loudness() of the 16-bit file "
+          f"{file_gap:.2e} dB (tol {tol:g}), of the signal {mem_gap:.3f} dB "
+          f"(tol {IO_TOL['lufs_file_db']:g})")
+    expect(lufs.device.type == "cuda", f"io: ffmpeg_loudness on {lufs.device}")
+    expect(file_gap <= tol, f"io: ffmpeg_loudness vs the file's loudness {file_gap:.2e}")
+    expect(mem_gap <= IO_TOL["lufs_file_db"], f"io: ffmpeg_loudness vs loudness {mem_gap:.3f}")
+    resampled = checked.clone().ffmpeg_resample(16000)
+    direct = checked.clone().resample(16000)
+    rs_err = _sig_err(resampled, direct)
+    rs_tol = 1e-2 if have["ffmpeg binary"] else 0.0
+    print(f"[io ffmpeg] ffmpeg_resample(16000) on {resampled.device} against resample: {rs_err:.2e}"
+          f" (tol {rs_tol:g})")
+    expect(resampled.device.type == "cuda" and rs_err <= rs_tol, f"io: ffmpeg_resample {rs_err:.2e}")
+    flac = sorted(folders["flac16"].glob("*.flac"))[0]
+    via = AudioSignal.load_from_file_with_ffmpeg(flac)
+    plain = AudioSignal(flac)
+    same = via.device.type == "cuda" and torch.equal(via.audio_data, plain.audio_data)
+    print(f"[io ffmpeg] load_from_file_with_ffmpeg({flac.name}) on {via.device} == AudioSignal(path): "
+          f"{same}")
+    expect(same, "io: load_from_file_with_ffmpeg differs from AudioSignal(path)")
+
+    one = staged[0]
+    for label, suffix, subtype in IO_FORMATS:
+        if label not in folders:
+            continue
+        path = root / "io" / f"written_{label}{suffix}"
+        one.write(path, **({"subtype": subtype} if subtype else {}))
+        back = AudioSignal(path)
+        data, _ = pio.load_audio(path)
+        bits = (back.sample_rate == SR and bool(torch.isfinite(back.audio_data).all())
+                and torch.equal(back.audio_data[0].cpu(), torch.from_numpy(data)))
+        if subtype is not None:
+            bits = bits and np.array_equal(data, _quantized(host_x[0], subtype))
+        print(f"[io write] {label}: written from the card and read back onto {back.device}, "
+              f"{back.signal_length} samples: {'as decoded on the host' if bits else 'MISMATCH'}"
+              + (f", the source's {subtype} quantization" if subtype and bits else ""))
+        expect(back.device.type == "cuda", f"io write {label}: read back onto {back.device}")
+        expect(bits, f"io write {label}: does not read back")
+
+    launches = dict(HK.LAUNCHES)
+    print(f"[io] absent here: {res['absent'] or 'nothing'} | phase {time.perf_counter() - t_phase:.1f} s "
+          f"| {card}")
+    print(f"[launches] host I/O and codecs: {launches} (none of the five kernels lies on this path)")
+    expect(not any(launches.values()), f"io: kernels launched {launches}")
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2175,6 +2466,7 @@ def main():
         del train_audio
         launches["serving"], _ = phase_serving(root, dev, card)
         launches["training loop"], _ = phase_training_loop(root, dev, card)
+        launches["host io"], _ = phase_host_io(root, dev, card)
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:

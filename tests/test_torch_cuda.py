@@ -706,3 +706,100 @@ def test_bf16_gap_on_card_is_the_cpus(cuda):
     card, cpu = gaps(cuda), gaps(torch.device("cpu"))
     for name in card:
         assert 0 < card[name] <= 1.5 * cpu[name], (name, card[name], cpu[name])
+
+
+# -- host I/O and codecs: card signals through the host layers ---------------------
+
+
+def _codec_input(seed=7, batch=2, seconds=0.5, sr=44100):
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = np.stack([0.3 * np.sin(2 * np.pi * (150 + 40 * i) * t) * (1 + 0.5 * np.sin(3 * t))
+                  + 0.02 * rng.randn(t.size) for i in range(batch)])
+    return x[:, None].astype(np.float32)
+
+
+def _codec_present(preset):
+    from audiotools_tpu_torch.io import codecs
+
+    return {"MP3": codecs.mp3_available, "GSM-FR": codecs.gsm_available,
+            "Amr-nb": lambda: True, "8-bit": lambda: True}.get(
+        preset, lambda: codecs.vorbis_available() and codecs.vorbis_encode_available())()
+
+
+@pytest.mark.parametrize("preset", ["MP3", "Vorbis", "Ogg"])
+def test_file_codec_presets_on_card_equal_cpu(cuda, preset):
+    """MP3 and Vorbis get the same bytes from a card signal as from a host
+    one: the card's result is the CPU's, to the bit, and on the card."""
+    from audiotools_tpu_torch import AudioSignal
+
+    if not _codec_present(preset):
+        pytest.skip(f"no system library for {preset}")
+    x = _codec_input()
+    card = AudioSignal(x, 44100, device=cuda).apply_codec(preset)
+    cpu = AudioSignal(x, 44100, device="cpu").apply_codec(preset)
+    assert card.device.type == "cuda" and card.signal_length == x.shape[-1]
+    assert torch.equal(card.audio_data.cpu(), cpu.audio_data)
+
+
+@pytest.mark.parametrize("preset", ["GSM-FR", "Amr-nb"])
+def test_telephone_presets_on_card_match_cpu_stage_by_stage(cuda, preset):
+    """The 8 kHz resample on the card within the resample's 1e-5 pin of the
+    CPU's; the host codec, fed the card's 8 kHz audio, gives the card's
+    preset its bits; the resample back within 1e-5; the whole preset on the
+    card, with its length."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.io import amrnb, codecs
+
+    if not _codec_present(preset):
+        pytest.skip(f"no system library for {preset}")
+    x = _codec_input(8)
+    card = AudioSignal(x, 44100, device=cuda)
+    down = card.clone().resample(8000)
+    assert float((down.audio_data.cpu() - AudioSignal(x, 44100, device="cpu").resample(8000)
+                  .audio_data).abs().max()) < 1e-5
+    host = down.audio_data.cpu().numpy()
+    coded = (amrnb.amrnb_roundtrip_batch(host) if preset == "Amr-nb"
+             else np.stack([codecs.gsm_roundtrip(item) for item in host])).astype(np.float32)
+    up = AudioSignal(torch.from_numpy(coded).to(cuda), 8000).resample(44100)
+    up.zero_pad(0, max(0, x.shape[-1] - up.signal_length)).truncate_samples(x.shape[-1])
+    cpu_up = AudioSignal(coded, 8000, device="cpu").resample(44100)
+    cpu_up.zero_pad(0, max(0, x.shape[-1] - cpu_up.signal_length)).truncate_samples(x.shape[-1])
+    assert float((up.audio_data.cpu() - cpu_up.audio_data).abs().max()) < 1e-5
+    out = card.clone().apply_codec(preset)
+    assert out.device.type == "cuda" and out.signal_length == x.shape[-1]
+    assert torch.equal(out.audio_data, up.audio_data)
+
+
+@pytest.mark.parametrize("suffix", [".wav", ".flac", ".mp3", ".ogg", ".m4a"])
+def test_every_format_loads_onto_the_card(cuda, tmp_path, suffix):
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch import io as pio
+    from audiotools_tpu_torch import native
+
+    if suffix in (".mp3", ".ogg") and not _codec_present({".mp3": "MP3", ".ogg": "Ogg"}[suffix]):
+        pytest.skip(f"no system library for {suffix}")
+    if suffix == ".m4a" and not native.av_available():
+        pytest.skip("no libav")
+    x = _codec_input(9, batch=1)
+    AudioSignal(x, 44100, device=cuda).write(tmp_path / f"a{suffix}")
+    sig = AudioSignal(tmp_path / f"a{suffix}")  # the card by default
+    data, sr = pio.load_audio(tmp_path / f"a{suffix}")
+    assert sig.device.type == "cuda" and sr == sig.sample_rate == 44100
+    assert torch.equal(sig.audio_data[0].cpu(), torch.from_numpy(data))
+
+
+def test_ffmpeg_mixin_meters_and_resamples_on_the_card(cuda, tmp_path):
+    from audiotools_tpu_torch import AudioSignal
+
+    x = _codec_input(10)
+    sig = AudioSignal(x, 44100, device=cuda)
+    lufs = sig.clone().ffmpeg_loudness()
+    assert lufs.device.type == "cuda"
+    for i in range(x.shape[0]):
+        sig[i].write(tmp_path / f"{i}.wav")
+        want = AudioSignal(tmp_path / f"{i}.wav").loudness()
+        assert abs(float(lufs[i]) - float(want[0])) < 1e-4
+    resampled = sig.clone().ffmpeg_resample(16000)
+    assert resampled.device.type == "cuda"
+    assert torch.equal(resampled.audio_data, sig.clone().resample(16000).audio_data)

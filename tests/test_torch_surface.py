@@ -146,13 +146,29 @@ def test_read_wav_dtype_matches_jax(tmp_path, dtype):
     np.testing.assert_array_equal(got, want)
 
 
-def test_save_audio_writes_wav_and_refuses_codecs(tmp_path):
-    x = _noise(4, (1, 300))
-    pio.save_audio(tmp_path / "a.wav", x, SR, subtype="FLOAT")
-    np.testing.assert_array_equal(pio.read_wav(tmp_path / "a.wav")[0], x)
-    for suffix in (".flac", ".mp3", ".ogg", ".m4a"):
-        with pytest.raises(ValueError, match="Unsupported audio format"):
-            pio.save_audio(tmp_path / f"a{suffix}", x, SR)
+@pytest.mark.parametrize("suffix", [".wav", ".flac", ".mp3", ".ogg", ".m4a"])
+def test_save_audio_round_trips_every_format(tmp_path, suffix):
+    from audiotools_tpu import native as jnative
+    from audiotools_tpu.io import codecs as jcodecs
+    from audiotools_tpu.io import load_audio as j_load_audio
+    from audiotools_tpu_torch import native as pnative
+
+    needs = {".mp3": jcodecs.mp3_available,
+             ".ogg": lambda: jcodecs.vorbis_available() and jcodecs.vorbis_encode_available(),
+             ".m4a": lambda: jnative.av_available() and pnative.av_available()}
+    if not needs.get(suffix, lambda: True)():
+        pytest.skip(f"no system codec library for {suffix}")
+    x = _noise(4, (2, 4410), scale=0.2)
+    path = tmp_path / f"a{suffix}"
+    pio.save_audio(path, x, SR)
+    got, sr = pio.load_audio(path)
+    want, jsr = j_load_audio(path)
+    assert sr == jsr == SR and got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if suffix in (".wav", ".flac"):  # lossless: the int16 quantization of the input
+        np.testing.assert_array_equal(got, np.clip(np.rint(x * 32768), -32768, 32767) / 32768)
+    pio.save_audio(tmp_path / "f.wav", x, SR, subtype="FLOAT")
+    np.testing.assert_array_equal(pio.read_wav(tmp_path / "f.wav")[0], x)
 
 
 # -- core/signal ------------------------------------------------------------------
@@ -493,12 +509,49 @@ def test_apply_codec_wav_presets_match_jax(kwargs):
 
 
 @pytest.mark.parametrize("preset", ["MP3", "Vorbis", "Ogg", "GSM-FR", "Amr-nb"])
-def test_apply_codec_compressed_formats_raise(preset):
-    p = AudioSignal(_noise(25, (1, 1, 100)), SR, device="cpu")
-    with pytest.raises(RuntimeError, match="codec"):
-        p.apply_codec(preset)
+def test_apply_codec_compressed_presets_match_jax(preset):
+    """MP3, Vorbis and Ogg: the host codecs get the same bytes, so the two
+    packages agree bit for bit. GSM-FR and Amr-nb: the resamples to and
+    from 8 kHz are each held to the resample's pin (1e-5,
+    tests/test_torch_ops.py), and the codec between them, fed one 8 kHz
+    input, to the bit; whole, a rounding difference in the resample may
+    flip one of the coder's argmins."""
+    from audiotools_tpu.io import amrnb as jamrnb
+    from audiotools_tpu.io import codecs as jcodecs
+    from audiotools_tpu_torch.io import amrnb as pamrnb
+    from audiotools_tpu_torch.io import codecs as pcodecs
+
+    available = {"MP3": jcodecs.mp3_available, "GSM-FR": jcodecs.gsm_available,
+                 "Amr-nb": lambda: True}.get(
+        preset, lambda: jcodecs.vorbis_available() and jcodecs.vorbis_encode_available())
+    if not available():
+        pytest.skip(f"no system codec library for {preset}")
+    x = _speech(25, duration=0.25)
+    p, j = _pair(x)
     with pytest.raises(ValueError, match="Unknown preset"):
         p.apply_codec("nope")
+    got = p.clone().apply_codec(preset)
+    assert got.signal_length == x.shape[-1] and got.audio_data.dtype == torch.float32
+    if preset in ("MP3", "Vorbis", "Ogg"):
+        assert _err(got, j.apply_codec(preset)) == 0
+        return
+    roundtrip = {"GSM-FR": (pcodecs.gsm_roundtrip, jcodecs.gsm_roundtrip),
+                 "Amr-nb": (pamrnb.amrnb_roundtrip_batch, jamrnb.amrnb_roundtrip_batch)}[preset]
+    down, jdown = p.clone().resample(8000), j.clone().resample(8000)
+    assert _err(down, jdown) < 1e-5
+    host = _np(down)
+    if preset == "GSM-FR":
+        coded = np.stack([roundtrip[0](item) for item in host])
+        jcoded = np.stack([roundtrip[1](item) for item in host])
+    else:
+        coded, jcoded = roundtrip[0](host), roundtrip[1](host)
+    np.testing.assert_array_equal(coded, jcoded)
+    up = AudioSignal(coded.astype(np.float32), 8000, device="cpu").resample(SR)
+    up.zero_pad(0, max(0, x.shape[-1] - up.signal_length)).truncate_samples(x.shape[-1])
+    jup = JSignal(coded.astype(np.float32), 8000).resample(SR)
+    jup.zero_pad(0, max(0, x.shape[-1] - jup.signal_length)).truncate_samples(x.shape[-1])
+    assert _err(up, jup) < 1e-5
+    assert _err(got, up) == 0  # the port's preset is these stages
 
 
 def test_matmul_convolves_like_jax():
