@@ -15,8 +15,13 @@ they are given ``device="cpu"``.
 __version__ = "0.1.0"
 
 from .core import AudioSignal
+from .core import STFTParams
 from .core import Meter
 from .core import util
 from . import ops
 from . import io
+from . import metrics
 from . import data
+from . import ml
+from .data import datasets
+from .data import transforms

@@ -1,3 +1,3 @@
 from . import util
 from .loudness import Meter
-from .signal import AudioSignal
+from .signal import AudioSignal, STFTParams

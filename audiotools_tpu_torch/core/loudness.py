@@ -4,6 +4,8 @@ Counterpart of ``audiotools_tpu/core/loudness.py``: the math lives in
 ``ops/loudness.py``; ``Meter`` is the object API, ``LoudnessMixin``
 caches a signal's measurement.
 """
+import torch
+
 from ..ops import loudness as loudness_ops
 
 
@@ -59,7 +61,10 @@ class Meter:
         )
         return out[0] if out.shape == (1,) else out
 
-    __call__ = integrated_loudness
+    def __call__(self, data):
+        return self.integrated_loudness(data)
+
+    forward = __call__
 
 
 class LoudnessMixin:
@@ -67,13 +72,31 @@ class LoudnessMixin:
     MIN_LOUDNESS = loudness_ops.MIN_LOUDNESS
 
     def loudness(self, filter_class: str = "K-weighting", block_size: float = 0.400,
-                 **kwargs):
+                 mesh=None, axis_name: str = "sp", **kwargs):
         """Integrated loudness per item ``(nb,)``, cached on the signal
         until its audio changes. Keyword arguments (``use_fir``, ``zeros``,
-        ``conv_method``) pass to ``ops.loudness.loudness``."""
+        ``conv_method``) pass to ``ops.loudness.loudness``.
+
+        ``mesh``: a ``DeviceMesh`` routes audio time-sharded over
+        ``mesh[axis_name]`` through the sequence-parallel meter
+        (``parallel.timeshard.sharded_loudness``, the cascade's exact impulse
+        response, both gates summed over the mesh); the result is a DTensor
+        replicated over the mesh."""
         if self._loudness is None:
-            self._loudness = loudness_ops.loudness(
-                self.audio_data, self.sample_rate,
-                filter_class=filter_class, block_size=block_size, **kwargs,
-            )
+            if mesh is not None:
+                from torch.distributed.tensor import DTensor
+
+                from ..parallel.timeshard import sharded_loudness
+
+                lufs = sharded_loudness(self.audio_data, self.sample_rate, mesh,
+                                        axis_name=axis_name, filter_class=filter_class,
+                                        block_size=block_size)
+                self._loudness = DTensor.from_local(
+                    torch.clamp(lufs.to_local(), min=loudness_ops.MIN_LOUDNESS),
+                    lufs.device_mesh, lufs.placements, run_check=False)
+            else:
+                self._loudness = loudness_ops.loudness(
+                    self.audio_data, self.sample_rate,
+                    filter_class=filter_class, block_size=block_size, **kwargs,
+                )
         return self._loudness

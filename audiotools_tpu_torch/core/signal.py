@@ -54,6 +54,9 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
     its STFT stay on the autograd graph of whatever produced it.
     """
 
+    # the valid-frame count kept by stft(mesh=...) for istft(mesh=...)
+    _stft_valid_frames = None
+
     def __init__(self, audio_path_or_array, sample_rate: int = None,
                  stft_params: STFTParams = None, offset: float = 0,
                  duration: float = None, device=None):
@@ -276,12 +279,22 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
         self.audio_data = self.audio_data.mean(dim=1, keepdim=True)
         return self
 
-    def resample(self, sample_rate: int):
-        """Polyphase resample to ``sample_rate`` (host numpy for CPU audio)."""
+    def resample(self, sample_rate: int, mesh=None, axis_name: str = "sp"):
+        """Polyphase resample to ``sample_rate`` (host numpy for CPU audio).
+
+        ``mesh``: a ``DeviceMesh`` routes audio time-sharded over
+        ``mesh[axis_name]`` (``parallel.shard_signal``) through the
+        sequence-parallel resampler (``parallel.timeshard.sharded_resample``).
+        """
         if sample_rate == self.sample_rate:
             return self
         data = self.audio_data
-        if data.device.type == "cpu":
+        if mesh is not None:
+            from ..parallel.timeshard import sharded_resample
+
+            data = sharded_resample(data, self.sample_rate, sample_rate, mesh,
+                                    axis_name=axis_name)
+        elif data.device.type == "cpu":
             data = torch.from_numpy(_resample.resample(data.numpy(), self.sample_rate, sample_rate))
         else:
             data = _resample.resample(data, self.sample_rate, sample_rate)
@@ -368,6 +381,8 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
                 raise ValueError(f"audio_data must be (B, C, T), got {tuple(data.shape)}")
         self._audio_data = data
         self._loudness = None
+
+    samples = audio_data
 
     @property
     def device(self):
@@ -458,22 +473,68 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
 
     def stft(self, window_length: int = None, hop_length: int = None,
              window_type: str = None, match_stride: bool = None,
-             padding_type: str = None, method: str = "fft"):
+             padding_type: str = None, method: str = "fft", mesh=None,
+             axis_name: str = "sp"):
         """Compute the STFT ``(B, C, F, T)`` (``ops.fft.stft``, ``method``
-        ``"fft"`` or ``"matmul"``), cache it in ``stft_data`` and return it."""
-        args = self._fill_stft_args(window_length, hop_length, window_type, match_stride,
-                                    padding_type)
-        self._stft_data = _fft.stft(self.audio_data, *args, method=method)
+        ``"fft"`` or ``"matmul"``), cache it in ``stft_data`` and return it.
+
+        ``mesh``: a ``DeviceMesh`` routes audio time-sharded over
+        ``mesh[axis_name]`` through the sequence-parallel STFT
+        (``parallel.timeshard.sharded_stft``): the frames come back sharded
+        along the frame axis, padded to the same count on every shard, and
+        the valid count is kept for ``istft(mesh=...)``. It takes
+        ``match_stride=False`` and reflect padding only.
+        """
+        (window_length, hop_length, window_type, match_stride,
+         padding_type) = self._fill_stft_args(window_length, hop_length, window_type,
+                                              match_stride, padding_type)
+        if mesh is not None:
+            if match_stride:
+                raise ValueError("the sequence-parallel STFT implements "
+                                 "match_stride=False (torch.stft center=True) only")
+            if padding_type not in (None, "reflect"):
+                raise ValueError("the sequence-parallel STFT implements reflect "
+                                 f"center padding only, got {padding_type!r}")
+            from ..parallel.timeshard import sharded_stft
+
+            self._stft_data, self._stft_valid_frames = sharded_stft(
+                self.audio_data, window_length, hop_length, mesh, window_type=window_type,
+                axis_name=axis_name, method=method)
+            return self._stft_data
+        self._stft_data = _fft.stft(self.audio_data, window_length, hop_length, window_type,
+                                    match_stride, padding_type, method=method)
+        self._stft_valid_frames = None
         return self._stft_data
 
     def istft(self, window_length: int = None, hop_length: int = None,
-              window_type: str = None, match_stride: bool = None, length: int = None):
+              window_type: str = None, match_stride: bool = None, length: int = None,
+              mesh=None, axis_name: str = "sp"):
         """Inverse STFT of ``stft_data`` into ``audio_data`` (fp32), cut to
-        ``length`` or to the original signal length."""
+        ``length`` or to the original signal length.
+
+        ``mesh``: inverts a spectrogram made by ``stft(mesh=...)`` with the
+        sequence-parallel overlap-add (``parallel.timeshard.sharded_istft``)
+        and the valid-frame count that call kept; the audio comes back
+        time-sharded, all of it (``length``, if given, must be that length).
+        """
         if self.stft_data is None:
             raise RuntimeError("Cannot do inverse STFT without self.stft_data!")
         window_length, hop_length, window_type, match_stride, _ = self._fill_stft_args(
             window_length, hop_length, window_type, match_stride)
+        if mesh is not None:
+            if match_stride:
+                raise ValueError("the sequence-parallel ISTFT implements "
+                                 "match_stride=False only")
+            from ..parallel.timeshard import sharded_istft
+
+            audio = sharded_istft(self.stft_data, window_length, hop_length, mesh,
+                                  window_type=window_type, axis_name=axis_name,
+                                  n_valid=self._stft_valid_frames)
+            if length is not None and length != audio.shape[-1]:
+                raise ValueError(f"the sequence-parallel ISTFT returns all "
+                                 f"{audio.shape[-1]} samples, not length={length}")
+            self.audio_data = audio
+            return self
         self.audio_data = _fft.istft(
             self.stft_data, window_length, hop_length, window_type, match_stride,
             length=length,

@@ -72,6 +72,11 @@ class DataLoader:
         Drop a last batch shorter than ``batch_size``.
     prefetch_batches : int
         Batches kept ready ahead of the consumer.
+    to_device : bool
+        Stage every batch onto ``device`` (the default). ``False``, the JAX
+        package's default, is ``device="cpu"`` with no wire quantization:
+        the batches stay on the host as collated. It refuses a card
+        ``device``.
     device : optional
         Stage every batch onto this device (``util.prepare_batch``); by
         default the card (raising when there is none). ``"cpu"`` keeps the
@@ -82,7 +87,7 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 1, num_workers: int = 0, sampler=None,
                  collate_fn=None, drop_last: bool = False, prefetch_batches: int = 2,
-                 device=None, wire_dtype: str = None):
+                 to_device: bool = True, device=None, wire_dtype: str = None):
         if wire_dtype not in (None, "int16"):
             raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
         self.dataset = dataset
@@ -92,6 +97,11 @@ class DataLoader:
         self.collate_fn = collate_fn or getattr(dataset, "collate", util.collate)
         self.drop_last = drop_last
         self.prefetch_batches = prefetch_batches
+        self.to_device = to_device
+        if not to_device:
+            if device is not None and torch.device(device).type != "cpu":
+                raise ValueError(f"to_device=False keeps the batches on the host, not on {device}")
+            device, wire_dtype = "cpu", None
         self.device = torch.device(device) if device is not None else util.default_device()
         self.wire_dtype = wire_dtype
 

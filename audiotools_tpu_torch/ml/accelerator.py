@@ -81,8 +81,8 @@ class Accelerator:
         in ``DistributedDataParallel`` (``kwargs`` go to it)."""
         if rules is not None:
             raise NotImplementedError(
-                "model-parallel partition rules wait for the port's parallel/ package "
-                "(ROADMAP Queue 1 item 9)")
+                "model-parallel partition rules (the JAX package's shard_params) are not "
+                "ported yet: they wait for the port's model-parallel slice")
         model = model.to(self.device)
         if self.num_processes > 1:
             device_ids = [self.device.index] if self.device.type == "cuda" else None

@@ -88,12 +88,14 @@ class BaseModel(nn.Module, metaclass=_RecordsKwargs):
         return path
 
     @classmethod
-    def load(cls, location, *args, strict: bool = False, device=None, **kwargs):
+    def load(cls, location, *args, package_name: str = None, strict: bool = False,
+             device=None, **kwargs):
         """The model saved at ``location``, on ``device`` (the card unless
         told ``"cpu"``). Saved kwargs are updated by ``kwargs`` and filtered
         to the constructor's signature. If the class cannot be found on the
         import path and source was packaged, the source is executed to
-        re-materialize it."""
+        re-materialize it. ``package_name`` is accepted for the JAX
+        package's signature and unused, as there."""
         blob = torch.load(location, map_location="cpu", weights_only=False)
         metadata = blob["metadata"]
         metadata["kwargs"].update(kwargs)

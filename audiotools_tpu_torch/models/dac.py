@@ -1,16 +1,15 @@
 """DAC-style neural audio codec: a convolutional encoder and decoder with
 Snake activations around a residual vector quantizer.
 
-Counterpart of ``audiotools_tpu/models/dac.py`` (its ``conv``
-formulation), as ``nn.Module``s on ``(B, C, T)`` tensors. The fields and
-defaults are the JAX constructor's; the parameters are initialized as flax
-initializes them (``lecun_normal`` kernels, zero biases, the residual
-units' near-identity output conv, unit-normal codebooks, Snake ``alpha``
-of ones) from an explicit generator seeded by ``seed``, or carried over
-from a JAX parameter tree by ``models.convert``. A model computes on the
-device of its parameters. The convolutions run at the caller's TF32
-settings; the codebook similarity runs in full fp32, as the JAX package
-pins it at ``HIGHEST``.
+Counterpart of ``audiotools_tpu/models/dac.py``, as ``nn.Module``s on
+``(B, C, T)`` tensors. The fields and defaults are the JAX constructor's;
+the parameters are initialized as flax initializes them (``lecun_normal``
+kernels, zero biases, the residual units' near-identity output conv,
+unit-normal codebooks, Snake ``alpha`` of ones) from an explicit
+generator seeded by ``seed``, or carried over from a JAX parameter tree by
+``models.convert``. A model computes on the device of its parameters. The
+convolutions run at the caller's TF32 settings; the codebook similarity
+runs in full fp32, as the JAX package pins it at ``HIGHEST``.
 
 ``dtype`` is flax's compute dtype: the parameters stay fp32, and every conv
 and transposed conv of the encoder and decoder casts its input, weight and
@@ -18,6 +17,15 @@ bias to ``dtype`` where it uses them (explicit casts, not autocast, so the
 model computes what the JAX package computes); Snake runs in its input's
 dtype. The encoder hands fp32 latents to the quantizer and the decoder
 returns an fp32 waveform.
+
+``DAC(formulation=...)`` takes the JAX package's names (``"conv"``,
+``"hybrid"``, ``"matmul"``) and computes every one as convs. The JAX
+package's ``hybrid`` and ``matmul`` write the residual units' convs as
+shifted matmuls over the same parameters, the same function lowered
+another way for XLA on a TPU. On an H100 that lowering is slower than
+cuDNN's convs and takes more memory (``PERF.md``), so the port keeps one
+path. A checkpoint of any JAX formulation loads (``models.convert``), and
+``save``/``load`` keep the name.
 """
 import math
 from typing import Tuple
@@ -29,6 +37,8 @@ from torch import nn
 
 from ..ml.layers.base import BaseModel
 from ..ops._fp32 import strict_fp32
+
+FORMULATIONS = ("conv", "hybrid", "matmul")
 
 __all__ = [
     "snake",
@@ -344,9 +354,11 @@ class DAC(BaseModel):
     ``encoder_dim`` and ``decoder_dim`` down for small runs. ``seed`` seeds
     the initialization. ``dtype`` (e.g. ``torch.bfloat16``) is the encoder's
     and decoder's compute dtype (module docstring); the parameters, the
-    quantizer and the losses stay fp32. ``BaseModel`` records the
-    constructor arguments, so ``save`` and ``load`` round-trip the
-    configuration, ``dtype`` included, with the weights.
+    quantizer and the losses stay fp32. ``formulation`` is one of
+    ``FORMULATIONS``, all computed as convs (module docstring).
+    ``BaseModel`` records the constructor arguments, so ``save`` and
+    ``load`` round-trip the configuration, ``dtype`` and ``formulation``
+    included, with the weights.
 
     >>> model = DAC().cuda()
     >>> out = model(audio)          # (B, 1, T) -> dict
@@ -357,8 +369,11 @@ class DAC(BaseModel):
     def __init__(self, encoder_dim: int = 64, encoder_rates: Tuple[int, ...] = (2, 4, 8, 8),
                  latent_dim: int = 256, decoder_dim: int = 1024, n_codebooks: int = 9,
                  codebook_size: int = 1024, codebook_dim: int = 8, sample_rate: int = 44100,
-                 seed: int = 0, dtype: torch.dtype = None):
+                 seed: int = 0, dtype: torch.dtype = None, formulation: str = "conv"):
         super().__init__()
+        if formulation not in FORMULATIONS:
+            raise ValueError(f"formulation must be one of {FORMULATIONS}, got {formulation!r}")
+        self.formulation = formulation
         self.encoder_rates, self.sample_rate = tuple(encoder_rates), sample_rate
         self.n_codebooks, self.codebook_size = n_codebooks, codebook_size
         self.dtype = dtype

@@ -120,6 +120,18 @@ runs, on card 0:
    every format from a card signal, read back. A format or preset whose
    system library is absent is printed as absent and not run. This path
    runs none of the five kernels.
+15. the long signal (``audiotools_tpu_torch.parallel``): one hour of
+   stereo at 44.1 kHz made on the card from a seed, at world size 1 under
+   ``nccl`` (``make_mesh({"sp": 1})``): the sharded K-weighting FIR,
+   resample to 16 kHz, meter and (one channel, window 2048, hop 1024) STFT
+   and iSTFT, each timed by CUDA events with its peak memory and held to
+   its single-device op on the card, the meter also to the FIR meter of
+   ``set_fast_meter(True)`` (kernel C). The multi-rank halo exchange runs
+   in the CPU tests (``gloo`` cannot carry card tensors point to point,
+   and NCCL refuses two ranks on one card). This path runs none of the
+   five kernels;
+16. the codec example: ``python -m audiotools_tpu_torch.examples.codec
+   --toy`` compress then decompress on the card. No kernel launches.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -301,6 +313,26 @@ IO_FORMATS = (("wav_pcm16", ".wav", "PCM_16"), ("wav_float", ".wav", "FLOAT"),
               ("mp3", ".mp3", None), ("ogg", ".ogg", None), ("m4a", ".m4a", None))
 IO_PRESETS = ("8-bit", "MP3", "Vorbis", "Ogg", "GSM-FR", "Amr-nb")
 IO_TOL = {"resample_abs": 1e-5, "lufs_db": 1e-4, "lufs_file_db": 0.2}
+
+# the long signal: one hour of stereo at world size 1 under nccl (NCCL refuses
+# two ranks on one card, and gloo cannot carry card tensors point to point:
+# its TCP transport reads them as host memory and raises "Bad address", so
+# the multi-rank halo logic runs in the CPU tests' gloo processes). Each
+# sharded op against its single-device counterpart on the same input, at
+# the JAX package's pins for the same comparison
+# (tests/parallel/test_timeshard.py: FIR 1e-4, STFT 1e-5 of its scale,
+# iSTFT 1e-5 and round trip 1e-4, resample 1e-6, loudness 1e-5 LU against
+# the exact meter; the FIR meter of set_fast_meter(True) truncates each
+# stage to 512 taps, so against it the signal API's pin,
+# tests/parallel/test_signal_api.py, 1e-3 LU). The STFT runs hop 1024: with
+# one shard the center-padding rule n_dev * hop >= window / 2 refuses
+# 2048/512.
+LONG_SECONDS = 3600.0
+LONG_WINDOW = 2048
+LONG_HOP = 1024
+LONG_RATE = 16000
+LONG_TOL = {"fir_abs": 1e-4, "stft_rel": 1e-5, "istft_abs": 1e-5, "round_trip_abs": 1e-4,
+            "resample_abs": 1e-6, "lufs_exact_db": 1e-5, "lufs_fir_meter_db": 1e-3}
 
 
 def fail(msg):
@@ -2426,6 +2458,176 @@ def phase_host_io(root, dev, card):
     return launches, res
 
 
+def long_signal(seconds, seed, dev):
+    """``(1, 2, seconds * SR)`` stereo made on ``dev`` from ``seed``: noise
+    under a slow loudness swell, with a quiet stretch so that both gates of
+    the meter engage."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T = int(seconds * SR)
+    x = torch.randn(1, 2, T, generator=g, device=dev)
+    env = 0.05 * (1.2 + torch.sin(torch.arange(T, device=dev) * (2 * np.pi / (97 * SR))))
+    env[T // 3: T // 3 + T // 10] *= 1e-2
+    return x.mul_(env)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_long_signal(root, dev, card):
+    """The long-signal (sequence-parallel) path at world size 1 under nccl:
+    one hour of stereo through each sharded op, timed (CUDA events, the
+    second of two runs) with its peak memory, and held to its single-device
+    op on the card; the meter also to the FIR meter of
+    ``set_fast_meter(True)`` (kernel C). Launch counts are set to 0 just
+    before the sharded ops and read just after (none of the five kernels
+    lies on this path); kernel C's launches by the comparison meter are
+    read apart."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops import resample as PRS
+    from audiotools_tpu_torch.ops.filters import causal_fft_conv1d
+    from audiotools_tpu_torch.parallel import (make_mesh, sharded_fir_conv, sharded_istft,
+                                               sharded_loudness, sharded_resample, sharded_stft)
+
+    res = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh({"sp": 1})
+        full = long_signal(LONG_SECONDS, 15, dev)
+        print(f"[long] input {tuple(full.shape)} fp32 ({full.numel() * 4 / 1e9:.3f} GB) on "
+              f"{full.device}, mesh {mesh} over nccl | {card}")
+        x = DTensor.from_local(full, mesh, [Shard(2)])
+        # one channel, cut to whole hops
+        T1 = full.shape[-1] // LONG_HOP * LONG_HOP
+        mono = full[:, 0, :T1].contiguous()
+        h = torch.from_numpy(PL._exact_fir(SR, "K-weighting")).to(dev)
+        state = {}
+
+        def stft():
+            state["spec"], state["n_valid"] = sharded_stft(
+                DTensor.from_local(mono, mesh, [Shard(1)]), LONG_WINDOW, LONG_HOP, mesh)
+            return state["spec"]
+
+        ops = {  # name: (sharded, single-device, tolerance)
+            "fir": (lambda: sharded_fir_conv(x, h, mesh), lambda: causal_fft_conv1d(full, h),
+                    "fir_abs"),
+            "stft": (stft, lambda: PF.stft(mono, LONG_WINDOW, LONG_HOP), "stft_rel"),
+            "istft": (lambda: sharded_istft(state["spec"], LONG_WINDOW, LONG_HOP, mesh,
+                                            n_valid=state["n_valid"]),
+                      lambda: PF.istft(PF.stft(mono, LONG_WINDOW, LONG_HOP), LONG_WINDOW,
+                                       LONG_HOP, length=T1), "istft_abs"),
+            "resample": (lambda: sharded_resample(x, SR, LONG_RATE, mesh),
+                         lambda: PRS.resample(full, SR, LONG_RATE), "resample_abs"),
+            "loudness": (lambda: sharded_loudness(x, SR, mesh),
+                         lambda: PL.loudness(full, SR, use_fir=False), "lufs_exact_db"),
+        }
+        results = {}
+        HK.reset_launch_counts()
+        for name, (sharded, _, _) in ops.items():
+            for _ in range(2):  # the first builds FFT plans and designs
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                got = sharded()
+                end.record()
+                end.synchronize()
+            results[name] = (got.to_local(), start.elapsed_time(end),
+                             torch.cuda.max_memory_allocated() - base)
+        launches = dict(HK.LAUNCHES)
+        for name, (_, local, tol) in ops.items():
+            got, ms, peak = results[name]
+            want = local()
+            if name == "stft":  # the valid frames, against the spectrum's scale
+                err = float((got[..., :want.shape[-1]] - want).abs().max() / want.abs().max())
+            else:
+                err = float((got - want).abs().max())
+            res[name] = {"ms": ms, "peak": peak, "err": err}
+            print(f"[long] {name}: {ms:.3f} ms (CUDA events), peak +{peak / 2**30:.3f} GiB "
+                  f"over the inputs | against the single-device op {err:.3g} (bound "
+                  f"{LONG_TOL[tol]:g}) | {card}")
+            expect(err <= LONG_TOL[tol], f"long signal {name}: {err} against the local op")
+            del want
+        trip = float((results["istft"][0] - mono).abs().max())
+        print(f"[long] STFT round trip against the signal: {trip:.3g} (bound "
+              f"{LONG_TOL['round_trip_abs']:g})")
+        expect(trip <= LONG_TOL["round_trip_abs"], f"long signal: round trip {trip}")
+        lufs = results["loudness"][0]
+        HK.reset_launch_counts()
+        with meter(True):  # set_fast_meter(True): the FIR meter through kernel C
+            fir_meter = PL.loudness(full, SR)
+        torch.cuda.synchronize()
+        meter_launches = dict(HK.LAUNCHES)
+        gap = float((lufs - fir_meter).abs().max())
+        print(f"[long] loudness {lufs.tolist()} LUFS; the FIR meter (kernel C, "
+              f"{meter_launches['fir_causal']} launch) {fir_meter.tolist()}: {gap:.3g} "
+              f"(bound {LONG_TOL['lufs_fir_meter_db']:g})")
+        expect(gap <= LONG_TOL["lufs_fir_meter_db"], f"long signal: FIR meter gap {gap}")
+        expect(meter_launches["fir_causal"] > 0, "long signal: the FIR meter did not launch C")
+        try:
+            sharded_stft(DTensor.from_local(mono[:, :8192].contiguous(), mesh, [Shard(1)]),
+                         LONG_WINDOW, LONG_HOP // 2, mesh)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        print(f"[long] {LONG_WINDOW}/{LONG_HOP // 2} on one shard: "
+              f"{'refused (' + refused + ')' if refused else 'NOT refused'}")
+        expect(refused is not None and "narrow" in refused,
+               "long signal: one shard took a hop below half the window")
+        del results, x, full, mono, state
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[launches] long signal: {launches} (none of the five kernels lies on this path); "
+          f"its comparison meter: {meter_launches}")
+    expect(not any(launches.values()), f"long signal: kernels launched {launches}")
+    return launches, res
+
+
+def phase_codec_example(root):
+    """``examples/codec.py --toy`` compress and decompress on the card.
+    Launch counts are set to 0 just before and read just after (none of the
+    five kernels lies on this path)."""
+    from audiotools_tpu_torch.examples import codec
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    HK.reset_launch_counts()
+    src = root / "spk" / "spk_0.wav"
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        art_path, out_path = Path(tmp) / "clip.dacz.npz", Path(tmp) / "out.wav"
+        t0 = time.perf_counter()
+        art = codec.main(["compress", str(src), str(art_path), "--toy"])
+        t1 = time.perf_counter()
+        recon = codec.main(["decompress", str(art_path), str(out_path), "--toy"])
+        t2 = time.perf_counter()
+        from audiotools_tpu_torch.io import read_wav
+
+        data, sr = read_wav(out_path)
+    n_src = read_wav(src)[0].shape[-1]
+    ok = (recon.device.type == "cuda" and sr == SR and data.shape[-1] == n_src
+          and bool(np.isfinite(data).all()) and art["codes"].shape[1] == 4)
+    print(f"[codec example] --toy on the card: compress {t1 - t0:.3f} s -> codes "
+          f"{art['codes'].shape}, decompress {t2 - t1:.3f} s -> {data.shape[-1]} samples at "
+          f"{sr} Hz on {recon.device} (host clock, with file I/O): {'ok' if ok else 'WRONG'}")
+    expect(ok, "codec example: compress/decompress on the card")
+    launches = dict(HK.LAUNCHES)
+    print(f"[launches] codec example: {launches} (none of the five kernels lies on this path)")
+    expect(not any(launches.values()), f"codec example: kernels launched {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2467,6 +2669,8 @@ def main():
         launches["serving"], _ = phase_serving(root, dev, card)
         launches["training loop"], _ = phase_training_loop(root, dev, card)
         launches["host io"], _ = phase_host_io(root, dev, card)
+        launches["long signal"], _ = phase_long_signal(root, dev, card)
+        launches["codec example"] = phase_codec_example(root)
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:

@@ -281,3 +281,30 @@ def test_silence_for_a_missing_file_stays_on_the_host(audio_dir):
     assert tuple(item["signal"].shape) == (1, 2, int(0.25 * SR))
     assert not item["signal"].audio_data.any()
     assert isinstance(AudioSignal.zeros(0.1, SR, device="cpu").audio_data, torch.Tensor)
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_loader_to_device_false_keeps_the_collated_host_batch_like_jax(speech_datasets,
+                                                                      num_workers):
+    """``to_device=False`` (the JAX package's default) hands over the batch
+    as collated, on the host and unquantized, without asking for a card."""
+    jds, pds = speech_datasets
+    p = DataLoader(pds, batch_size=4, num_workers=num_workers, to_device=False,
+                   wire_dtype="int16")
+    j = JDataLoader(jds, batch_size=4, num_workers=num_workers, to_device=False,
+                    wire_dtype="int16")
+    assert p.to_device is False and p.device.type == "cpu"
+    got, want = list(p), list(j)
+    assert [b["idx"].tolist() for b in got] == [b["idx"].tolist() for b in want]
+    for g, w in zip(got, want):
+        assert g["signal"].audio_data.dtype == torch.float32
+        assert g["signal"].device.type == "cpu"
+        np.testing.assert_array_equal(_audio(g["signal"]), _audio(w["signal"]))
+
+
+def test_loader_to_device_false_refuses_a_card_device(speech_datasets):
+    """``to_device=False`` is ``device="cpu"``: a card device contradicts it."""
+    with pytest.raises(ValueError, match="to_device=False"):
+        DataLoader(speech_datasets[1], batch_size=4, to_device=False, device="cuda")
+    loader = DataLoader(speech_datasets[1], batch_size=4, to_device=False, device="cpu")
+    assert loader.device.type == "cpu" and loader.wire_dtype is None

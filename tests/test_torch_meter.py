@@ -268,9 +268,25 @@ def test_meter_matches_jax(use_fir, zeros):
     want = np.asarray(jm.integrated_loudness(jnp.asarray(x)))
     assert np.abs(pm.integrated_loudness(torch.from_numpy(x)).numpy() - want).max() < 1e-3
     assert np.abs(pm(torch.from_numpy(x)).numpy() - want).max() < 1e-3
+    assert np.abs(pm.forward(torch.from_numpy(x)).numpy()
+                  - np.asarray(jm.forward(jnp.asarray(x)))).max() < 1e-3
     # one item reads as a scalar, as in the JAX package
     one = pm.integrated_loudness(torch.from_numpy(x[:1]))
     assert one.shape == () and abs(float(one) - float(want[0])) < 1e-3
+
+
+def test_samples_is_audio_data_like_jax():
+    """``samples`` reads and sets ``audio_data``; setting it drops the
+    cached loudness in both packages."""
+    x = _speechy(12, 2, 1, SR)
+    sig, jsig = AudioSignal(torch.from_numpy(x), SR), JAudioSignal(jnp.asarray(x), SR)
+    assert sig.samples is sig.audio_data
+    for s in (sig, jsig):
+        s.loudness()
+        s.samples = s.samples * 0.5
+        assert s._loudness is None
+    assert np.array_equal(sig.samples.numpy(), np.asarray(jsig.samples))
+    assert np.abs(sig.loudness().numpy() - np.asarray(jsig.loudness())).max() < 1e-3
 
 
 def test_signal_loudness_passes_the_meter_options():
