@@ -8,6 +8,14 @@ and ``host_state.pkl`` (``step``, ``data_idx``, ``tracker``, ``extra``, as
 in the JAX package). A save is written to a hidden temporary folder and
 renamed into place, so a crash during a save leaves the earlier steps
 whole.
+
+Several processes (``torch.distributed``) save one step together: every
+rank takes part in gathering the sharded state, then rank 0 alone clears
+stale temporary folders and writes the step, and every rank returns once
+it is renamed into place. A ``DTensor`` (a parameter or an optimizer state
+of a model placed on a mesh, ``models.train.shard_params``) is written as
+its global tensor, so a step restores onto any mesh shape or into an
+unsharded model; a restore places each tensor as its template's is.
 """
 import os
 import pickle
@@ -16,7 +24,11 @@ import uuid
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from ..parallel.tensor import local_slice
 
 __all__ = ["Checkpointer"]
 
@@ -27,10 +39,13 @@ _TMP_PREFIX = ".tmp-"
 
 def _host_state(obj):
     """The state of ``obj`` on the host: modules and optimizers become their
-    ``state_dict()``, tensors detached copies on the CPU, and dicts, lists and
+    ``state_dict()``, tensors detached copies on the CPU (a ``DTensor`` its
+    global tensor: every rank of its mesh calls this), and dicts, lists and
     tuples are walked."""
     if isinstance(obj, (nn.Module, torch.optim.Optimizer)):
         obj = obj.state_dict()
+    if isinstance(obj, DTensor):
+        obj = obj.full_tensor()
     if isinstance(obj, torch.Tensor):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
@@ -40,14 +55,45 @@ def _host_state(obj):
     return obj
 
 
+def _placed_like(value, like):
+    """A global tensor from a checkpoint placed as ``like`` is: this rank's
+    slice as a ``DTensor`` with ``like``'s mesh and placements; as it is
+    when ``like`` is no ``DTensor``."""
+    if not isinstance(like, DTensor) or not isinstance(value, torch.Tensor):
+        return value
+    shard = local_slice(value, like.device_mesh, like.placements)
+    return DTensor.from_local(shard.to(like.device).contiguous(), like.device_mesh,
+                              like.placements, run_check=False)
+
+
+def _optimizer_state_like(optimizer, state):
+    """An optimizer's saved state with each per-parameter tensor of the
+    parameter's shape placed as the parameter is (the saved ids follow the
+    parameters' order, as ``load_state_dict`` pairs them)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    ids = [i for group in state["param_groups"] for i in group["params"]]
+    by_id = dict(zip(ids, params))
+    placed = {}
+    for i, entries in state["state"].items():
+        param = by_id.get(i)
+        placed[i] = {k: _placed_like(v, param) if (
+            param is not None and isinstance(v, torch.Tensor) and v.shape == param.shape) else v
+            for k, v in entries.items()}
+    return dict(state, state=placed)
+
+
 def _load_into(target, state):
     """Load ``state`` into ``target`` (modules, optimizers, tensors, or dicts
-    of them) in place; returns ``target``."""
-    if isinstance(target, (nn.Module, torch.optim.Optimizer)):
-        target.load_state_dict(state)
+    of them) in place, each tensor placed as the target's is; returns
+    ``target``."""
+    if isinstance(target, nn.Module):
+        own = target.state_dict()
+        target.load_state_dict({k: _placed_like(v, own.get(k)) for k, v in state.items()})
+    elif isinstance(target, torch.optim.Optimizer):
+        target.load_state_dict(_optimizer_state_like(target, state))
     elif isinstance(target, torch.Tensor):
         with torch.no_grad():
-            target.copy_(state)
+            target.copy_(_placed_like(state, target))
     elif isinstance(target, dict):
         missing = set(target) ^ set(state)
         if missing:
@@ -95,9 +141,8 @@ class Checkpointer:
         data_idx: int = None,
         extra: dict = None,
     ):
-        """Checkpoint a training state bundle at ``step``; returns its folder."""
-        for stale in self.directory.glob(_TMP_PREFIX + "*"):
-            shutil.rmtree(stale, ignore_errors=True)  # a save that crashed
+        """Checkpoint a training state bundle at ``step``; returns its folder.
+        With several processes every rank calls it; rank 0 writes."""
         state = {"params": _host_state(params)}
         if opt_state is not None:
             state["opt_state"] = _host_state(opt_state)
@@ -107,6 +152,28 @@ class Checkpointer:
             "tracker": tracker.state_dict() if tracker is not None else None,
             "extra": extra or {},
         }
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return self._write(step, state, meta)
+        dist.barrier()  # no rank is still reading a step this save may replace
+        error = None
+        if dist.get_rank() == 0:
+            try:
+                self._write(step, state, meta)
+            except BaseException as e:
+                error = e
+        said = [None if error is None else f"{type(error).__name__}: {error}"]
+        dist.broadcast_object_list(said, src=0)  # every rank waits for the rename
+        if error is not None:
+            raise error
+        if said[0] is not None:
+            raise RuntimeError(f"rank 0 failed to save step {step}: {said[0]}")
+        return self.directory / str(step)
+
+    def _write(self, step, state, meta):
+        """Write one step folder (one process): clear the temporary folders of
+        saves that crashed, write, rename into place, apply the retention."""
+        for stale in self.directory.glob(_TMP_PREFIX + "*"):
+            shutil.rmtree(stale, ignore_errors=True)
         tmp = self.directory / f"{_TMP_PREFIX}{step}-{uuid.uuid4().hex}"
         tmp.mkdir()
         try:

@@ -8,9 +8,12 @@ discriminator, from one generator forward; then the discriminator, on that
 forward's reconstruction, detached. The generator's backward accumulates
 into the generator's parameters only (``backward(inputs=...)``), so no
 gradient of the generator's loss reaches the discriminator's update.
+Placed on a mesh (``models.train.shard_params``), both models train as the
+reconstruction step does, and the metrics are the global batch's.
 """
 import torch
 
+from ..parallel import tensor as _tp
 from .train import codec_loss
 
 __all__ = [
@@ -60,7 +63,8 @@ def make_adversarial_train_step(gen, disc, g_optimizer, d_optimizer, sample_rate
     Generator: ``codec_loss`` plus the LSGAN and feature-matching terms
     against the current discriminator (its outputs on the real audio are
     constants of this update). Discriminator: LSGAN real against fake on
-    the step's reconstruction. The metrics are detached tensors.
+    the step's reconstruction. The metrics are detached tensors; for models
+    placed on a mesh, the global batch's (over ``gen``'s data axis).
     """
     g_params = [p for p in gen.parameters() if p.requires_grad]
 
@@ -83,6 +87,6 @@ def make_adversarial_train_step(gen, disc, g_optimizer, d_optimizer, sample_rate
         d_loss.backward()
         d_optimizer.step()
         metrics["loss/discriminator"] = d_loss
-        return {k: v.detach() for k, v in metrics.items()}
+        return _tp.data_mean(gen, {k: v.detach() for k, v in metrics.items()})
 
     return train_step

@@ -26,6 +26,12 @@ another way for XLA on a TPU. On an H100 that lowering is slower than
 cuDNN's convs and takes more memory (``PERF.md``), so the port keeps one
 path. A checkpoint of any JAX formulation loads (``models.convert``), and
 ``save``/``load`` keep the name.
+
+Under model parallelism (``models.train.shard_params``) the parameters are
+``DTensor``s. Every layer computes on their local tensors; a conv,
+transposed conv or dense layer whose weight is sharded on its output
+channels computes its own channels and gathers them over the tensor axis
+(``parallel.tensor``), then adds its replicated bias.
 """
 import math
 from typing import Tuple
@@ -37,6 +43,7 @@ from torch import nn
 
 from ..ml.layers.base import BaseModel
 from ..ops._fp32 import strict_fp32
+from ..parallel import tensor as _tp
 
 FORMULATIONS = ("conv", "hybrid", "matmul")
 
@@ -69,7 +76,7 @@ class Snake(nn.Module):
         self.alpha = nn.Parameter(torch.ones(1, channels, 1))
 
     def forward(self, x):
-        return snake(x, self.alpha.to(x.dtype))
+        return snake(x, _tp.local(self.alpha).to(x.dtype))
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -82,8 +89,9 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 
 def _in_dtype(dtype, *tensors):
-    """``tensors`` cast to the compute ``dtype`` (as they are for None)."""
-    return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
+    """``tensors`` cast to the compute ``dtype`` (as they are for None; a
+    None among them stays None)."""
+    return tensors if dtype is None else tuple(t if t is None else t.to(dtype) for t in tensors)
 
 
 def conv_in_dtype(conv, dtype, x, weight, bias, *args):
@@ -97,20 +105,41 @@ def conv_in_dtype(conv, dtype, x, weight, bias, *args):
         return conv(x, weight, bias, *args)
     x, weight, bias = _in_dtype(dtype, x, weight, bias)
     if x.device.type == "cpu":
-        return conv(x.float(), weight.float(), bias.float(), *args).to(dtype)
+        bias = bias if bias is None else bias.float()
+        return conv(x.float(), weight.float(), bias, *args).to(dtype)
     return conv(x, weight, bias, *args)
+
+
+def column_parallel(conv, x, weight, bias, out_dim, *args, dtype=None, channel_dim=1):
+    """``conv(x, weight, bias, *args)`` in ``dtype`` (``conv_in_dtype``) on
+    the local tensors of ``weight`` and ``bias``. When ``weight`` is sharded
+    on its output channels (its ``out_dim``), each rank computes its own
+    channels, the output's ``channel_dim`` is gathered over the shards'
+    process group, and the whole bias is added after the gather, so its
+    gradient is whole on every rank."""
+    group = _tp.shard_group(weight, out_dim)
+    weight, bias = _tp.local(weight), _tp.local(bias)
+    if group is None:
+        return conv_in_dtype(conv, dtype, x, weight, bias, *args)
+    y = conv_in_dtype(conv, dtype, _tp.copy_to(x, group), weight, None, *args)
+    y = _tp.gather_from(y, channel_dim, group)
+    return y + bias.to(y.dtype).reshape(-1, *([1] * (y.ndim - 1 - channel_dim % y.ndim)))
 
 
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` computing in ``compute_dtype`` when it is given: input,
-    weight and bias cast at use, the parameters kept as they are."""
+    weight and bias cast at use, the parameters kept as they are. Its weight
+    may be sharded on its output channels (``column_parallel``)."""
+
+    _tp_dims = {"weight": 0}
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return conv_in_dtype(self._conv_forward, self.compute_dtype, x, self.weight, self.bias)
+        return column_parallel(self._conv_forward, x, self.weight, self.bias, 0,
+                               dtype=self.compute_dtype)
 
 
 def _conv1d(c_in, c_out, k, generator, dilation=1, stride=1, padding=None, std=None,
@@ -173,7 +202,11 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
     - 1`` less each. ``ConvTranspose1d`` crops ``padding`` at both ends, so
     where the two crops differ (an odd stride at ``k = 2 s``) the right one
     is finished here. The output is ``stride`` times the input. With
-    ``compute_dtype`` set, input, weight and bias are cast to it at use."""
+    ``compute_dtype`` set, input, weight and bias are cast to it at use. Its
+    weight ``(in, out, k)`` may be sharded on its output channels, dim 1
+    (``column_parallel``)."""
+
+    _tp_dims = {"weight": 1}
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
                  compute_dtype=None):
@@ -185,9 +218,9 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        y = conv_in_dtype(F.conv_transpose1d, self.compute_dtype, x, self.weight, self.bias,
-                          self.stride, self.padding, self.output_padding, self.groups,
-                          self.dilation)
+        y = column_parallel(F.conv_transpose1d, x, self.weight, self.bias, 1, self.stride,
+                            self.padding, self.output_padding, self.groups, self.dilation,
+                            dtype=self.compute_dtype)
         left, right = self.crops
         return y[..., left: y.shape[-1] - right] if left or right else y
 
@@ -263,8 +296,18 @@ class Decoder(nn.Module):
         return torch.tanh(self.conv_out(self.snake(x))).float()
 
 
+class _Linear(nn.Linear):
+    """``nn.Linear`` whose weight may be sharded on its output features,
+    gathered along the last dim (``column_parallel``)."""
+
+    _tp_dims = {"weight": 0}
+
+    def forward(self, x):
+        return column_parallel(F.linear, x, self.weight, self.bias, 0, channel_dim=-1)
+
+
 def _linear(c_in, c_out, generator):
-    layer = nn.Linear(c_in, c_out)
+    layer = _Linear(c_in, c_out)
     lecun_normal_(layer.weight, c_in, generator)
     nn.init.zeros_(layer.bias)
     return layer
@@ -288,13 +331,13 @@ class VectorQuantize(nn.Module):
         """``z`` ``(B, D, T)`` -> ``(z_q (B, D, T), codes (B, T),
         commitment_loss, codebook_loss)``."""
         z_e = self.in_proj(z.transpose(1, 2))  # (B, T, cdim)
+        codebook = _tp.local(self.codebook)
         z_n = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-8)
-        c_n = self.codebook / (
-            torch.linalg.vector_norm(self.codebook, dim=-1, keepdim=True) + 1e-8)
+        c_n = codebook / (torch.linalg.vector_norm(codebook, dim=-1, keepdim=True) + 1e-8)
         with strict_fp32():
             sim = z_n @ c_n.T  # (B, T, K)
         indices = sim.argmax(dim=-1)
-        z_q = F.embedding(indices, self.codebook)
+        z_q = F.embedding(indices, codebook)
 
         commitment_loss = ((z_e - z_q.detach()) ** 2).mean()
         codebook_loss = ((z_q - z_e.detach()) ** 2).mean()
@@ -304,7 +347,7 @@ class VectorQuantize(nn.Module):
 
     def from_code(self, indices):
         """Stage codes ``(B, T)`` -> this stage's latents ``(B, D, T)``."""
-        return self.out_proj(F.embedding(indices, self.codebook)).transpose(1, 2)
+        return self.out_proj(F.embedding(indices, _tp.local(self.codebook))).transpose(1, 2)
 
 
 class ResidualVectorQuantize(nn.Module):

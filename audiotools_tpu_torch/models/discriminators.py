@@ -14,6 +14,13 @@ feature maps, the final logit map last, in fp32.
 normalized in fp32, then every conv casts its input, weight and bias to
 ``dtype`` at use; the STFT runs in fp32 and its image is cast before the
 first conv.
+
+Under model parallelism (``models.train.shard_params``) a conv's weight may
+be sharded on its output channels. The weight norm of a local shard is
+exact (each output channel is normalized over its own inputs and taps); the
+replicated scale and bias apply per output channel after the gather
+(``conv(x, s w) = s conv(x, w)``), so their gradients are whole on every
+rank.
 """
 from typing import Sequence, Tuple
 
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fft as _fft
+from ..parallel import tensor as _tp
 from .dac import _in_dtype, conv_in_dtype, lecun_normal_
 
 __all__ = [
@@ -55,7 +63,10 @@ class WNConv2d(nn.Module):
     """SAME-padded 2-D conv with flax's weight norm (``weight_norm=False``:
     a plain conv), computing in ``dtype`` when given. ``weight`` is the
     unnormalized kernel ``v`` ``(out, in, kh, kw)``, ``scale`` the
-    per-output-feature gain."""
+    per-output-feature gain. The weight may be sharded on its output
+    channels (module docstring)."""
+
+    _tp_dims = {"weight": 0}
 
     def __init__(self, c_in: int, c_out: int, kernel: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), weight_norm: bool = True, generator=None,
@@ -67,12 +78,14 @@ class WNConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c_out))
         self.scale = nn.Parameter(torch.ones(c_out)) if weight_norm else None
 
-    def effective_weight(self):
-        w = self.weight
+    def _normalized(self, w):
         if self.scale is None:
             return w
-        w = w * torch.rsqrt((w * w).sum(dim=(1, 2, 3), keepdim=True) + 1e-12)
-        return w * self.scale[:, None, None, None]
+        return w * torch.rsqrt((w * w).sum(dim=(1, 2, 3), keepdim=True) + 1e-12)
+
+    def effective_weight(self):
+        w = self._normalized(_tp.local(self.weight))
+        return w if self.scale is None else w * _tp.local(self.scale)[:, None, None, None]
 
     def forward(self, x):
         (h_lo, h_hi), (w_lo, w_hi) = (
@@ -81,8 +94,17 @@ class WNConv2d(nn.Module):
             padding = (h_lo, w_lo)
         else:
             x, padding = F.pad(x, (w_lo, w_hi, h_lo, h_hi)), 0
-        return conv_in_dtype(F.conv2d, self.dtype, x, self.effective_weight(), self.bias,
-                             self.stride, padding)
+        group = _tp.shard_group(self.weight, 0)
+        bias = _tp.local(self.bias)
+        if group is None:
+            return conv_in_dtype(F.conv2d, self.dtype, x, self.effective_weight(), bias,
+                                 self.stride, padding)
+        y = conv_in_dtype(F.conv2d, self.dtype, _tp.copy_to(x, group),
+                          self._normalized(_tp.local(self.weight)), None, self.stride, padding)
+        y = _tp.gather_from(y, 1, group)
+        if self.scale is not None:
+            y = y * _tp.local(self.scale).to(y.dtype)[:, None, None]
+        return y + bias.to(y.dtype)[:, None, None]
 
 
 class PeriodDiscriminator(nn.Module):

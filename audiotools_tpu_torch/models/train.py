@@ -6,14 +6,24 @@ optimizer ``optax.adamw(1e-4)`` is, in PyTorch,
 ``torch.optim.AdamW(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
 weight_decay=1e-4)``: torch's default weight decay is 1e-2, so it must be
 given.
+
+Model parallelism (:func:`shard_params`) runs one process per device on a
+``DeviceMesh`` ``{"dp": D, "tp": P}``: conv, transposed-conv and dense
+weights sharded on their output channels over ``tp``, everything else
+replicated, batches sharded over ``dp`` (each process passes its own share
+to the step). The steps stay as they are: the layers gather their output
+channels (``parallel.tensor``), hooks average the gradients over ``dp``, and
+a placed model's metrics are the global batch's.
 """
 import torch
 
 from ..core import AudioSignal
 from ..metrics.distance import l1_loss
 from ..metrics.spectral import MelSpectrogramLoss, MultiScaleSTFTLoss
+from ..parallel import tensor as _tp
 
-__all__ = ["LOSS_WEIGHTS", "codec_loss", "make_train_step"]
+__all__ = ["LOSS_WEIGHTS", "codec_loss", "make_train_step", "shard_params_rules",
+           "shard_params"]
 
 LOSS_WEIGHTS = {
     "waveform": 1.0,
@@ -61,13 +71,46 @@ def make_train_step(model, optimizer, sample_rate: int):
     """A step ``audio -> metrics``: one forward of ``model``, one backward,
     one ``optimizer`` update of the model's parameters in place. The metrics
     are detached tensors on the model's device (reading them waits for the
-    step)."""
+    step); for a model placed on a mesh, the global batch's."""
 
     def train_step(audio):
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = codec_loss(model, audio, sample_rate)
         loss.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return _tp.data_mean(model, {k: v.detach() for k, v in metrics.items()})
 
     return train_step
+
+
+def shard_params_rules(mesh, tensor_axis: str = "tp"):
+    """The partition rule of model parallelism: ``spec_for(name, param,
+    layer)`` -> a ``PartitionSpec``-like tuple over the torch layout. A conv,
+    transposed-conv or dense weight (``ndim >= 2``) whose output channels
+    divide by and are at least the tensor axis's size is sharded on them
+    (dim 0; dim 1 of a transposed conv's ``(in, out, k)``); biases, scales,
+    codebooks and Snake's alphas are replicated. The JAX rule selects the
+    same weights by their flax names and the last dim of flax's layouts."""
+    tp_size = mesh.size(_tp._dim_index(mesh, tensor_axis))
+
+    def spec_for(name: str, param, layer=None):
+        leaf = name.rsplit(".", 1)[-1]
+        out = getattr(layer, "_tp_dims", {}).get(leaf)
+        if (out is not None and param.ndim >= 2 and param.shape[out] % tp_size == 0
+                and param.shape[out] >= tp_size):
+            spec = [None] * param.ndim
+            spec[out] = tensor_axis
+            return tuple(spec)
+        return ()
+
+    return spec_for
+
+
+def shard_params(model, mesh, tensor_axis: str = "tp"):
+    """Place ``model`` on ``mesh`` for (dp, tp) training: every parameter a
+    ``DTensor``, sharded over ``tensor_axis`` by :func:`shard_params_rules`
+    and replicated elsewhere, its gradients averaged over the mesh's
+    ``"dp"`` dimension when it has one; returns the model. The parameters
+    are the ones the ranks already hold, which must be equal (the same seed,
+    or the same converted JAX tree)."""
+    return _tp.place(model, mesh, shard_params_rules(mesh, tensor_axis))

@@ -149,7 +149,17 @@ def _on_device(design, args: tuple, device: torch.device):
 
 
 def _pad(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
-    """Pad the last axis of ``(B, T)``; ``mode`` as ``F.pad`` takes it."""
+    """Pad the last axis of ``(B, T)``; ``mode`` as ``F.pad`` takes it. A
+    reflection wider than the signal reflects again, as ``jnp.pad`` does
+    (``F.pad`` refuses it): a clip shorter than half the window."""
+    T = x.shape[-1]
+    if mode == "reflect" and max(left, right) >= T:
+        idx = torch.arange(-left, T + right, device=x.device)
+        if T == 1:
+            return x[:, torch.zeros_like(idx)]
+        period = 2 * (T - 1)
+        idx = idx.remainder(period)
+        return x[:, torch.where(idx >= T, period - idx, idx)]
     return F.pad(x[:, None], (left, right), mode=mode)[:, 0]
 
 

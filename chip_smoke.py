@@ -131,7 +131,20 @@ runs, on card 0:
    and NCCL refuses two ranks on one card). This path runs none of the
    five kernels;
 16. the codec example: ``python -m audiotools_tpu_torch.examples.codec
-   --toy`` compress then decompress on the card. No kernel launches.
+   --toy`` compress then decompress on the card. No kernel launches;
+17. model-parallel training at full width: phase 8's ``DAC()`` and
+   ``Discriminator()`` (the same seeded weights) through ``models.train.
+   shard_params`` on a ``{"dp": 1, "tp": 1}`` mesh at world size 1 under
+   ``nccl``, 3 reconstruction and 3 adversarial steps on phase 8's batch
+   (the first of each untimed): ms/step, clips/s and peak memory beside
+   phase 8's unsharded step, and one more step under ``torch.profiler``
+   (device idle share); inside ``strict_fp32`` one step of each,
+   sharded against unsharded from the same weights (losses, the parameters
+   after the update, within ``TRAIN_TOL``); the sharded state of both
+   models and both optimizers through ``Checkpointer``, restored into fresh
+   sharded models bit for bit with its placements. This path runs none of
+   the five kernels. The multi-rank (dp, tp) path runs on the CPU tests and
+   across cards in ``tests/test_torch_cuda.py``.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -1575,7 +1588,9 @@ def _max_update_gap(card_models, cpu_models):
     worst, over, total = 0.0, 0, 0
     for a, b in zip(card_models, cpu_models):
         for pa, pb in zip(a.parameters(), b.parameters()):
-            diff = (pa.detach().cpu() - pb.detach()).abs()
+            if hasattr(pa, "full_tensor"):  # a DTensor: its global value
+                pa = pa.full_tensor()
+            diff = (pa.detach().cpu() - pb.detach().cpu()).abs()
             worst = max(worst, float(diff.max()))
             over += int((diff > TRAIN_TOL["update_lr"] * LR).sum())
             total += diff.numel()
@@ -1943,8 +1958,11 @@ def phase_serving(root, dev, card):
 
 
 def _host_tree(obj):
-    """A host copy of a state tree (tensors cloned to the CPU)."""
+    """A host copy of a state tree (tensors cloned to the CPU, a DTensor's
+    global value)."""
     if isinstance(obj, torch.Tensor):
+        if hasattr(obj, "full_tensor"):
+            obj = obj.full_tensor()
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _host_tree(v) for k, v in obj.items()}
@@ -2628,6 +2646,184 @@ def phase_codec_example(root):
     return launches
 
 
+def _sharded_models(label, dev, mesh, seed=0):
+    """Phase 8's fresh seeded models on ``dev`` placed on ``mesh``
+    (``shard_params``), their optimizers, and the step of ``label``."""
+    from audiotools_tpu_torch.models import DAC, Discriminator
+    from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+    from audiotools_tpu_torch.models.train import make_train_step, shard_params
+
+    gen = shard_params(DAC(seed=seed).to(dev), mesh)
+    if label == "reconstruction":
+        opt = _adamw(gen)
+        return {"g": gen}, {"g": opt}, make_train_step(gen, opt, SR)
+    disc = shard_params(Discriminator(seed=seed + 1).to(dev), mesh)
+    opts = {"g": _adamw(gen), "d": _adamw(disc)}
+    return ({"g": gen, "d": disc}, opts,
+            make_adversarial_train_step(gen, disc, opts["g"], opts["d"], SR))
+
+
+def _optimizer_ms(opt):
+    """Host milliseconds of one ``opt.step()`` on the gradients it holds,
+    the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000
+
+
+def _placements_kept(got, want):
+    """Every parameter of ``got`` a DTensor placed as ``want``'s is."""
+    return all(type(a).__name__ == "DTensor" and a.placements == b.placements
+               for a, b in zip(got.parameters(), want.parameters()))
+
+
+def phase_model_parallel(root, dev, card, audio, unsharded):
+    """Model-parallel training at world size 1 under nccl: phase 8's models,
+    weights and batch through ``shard_params`` on a ``{"dp": 1, "tp": 1}``
+    mesh, each step TRAIN_STEPS times (the first untimed) beside phase 8's
+    ``unsharded`` results; one step of each against the unsharded step
+    inside ``strict_fp32``; the sharded state through ``Checkpointer`` and
+    back. Launch counts are set to 0 just before the timed steps and read
+    just after (none of the five kernels lies on this path)."""
+    import torch.distributed as dist
+
+    from audiotools_tpu_torch.ml.checkpoint import Checkpointer
+    from audiotools_tpu_torch.models import DAC
+    from audiotools_tpu_torch.models.train import make_train_step
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+    from audiotools_tpu_torch.parallel import make_mesh
+    from audiotools_tpu_torch.parallel import tensor as PTT
+
+    res, launches = {}, {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh({"dp": 1, "tp": 1})
+        for label in ("reconstruction", "adversarial"):
+            models, opts, step = _sharded_models(label, dev, mesh)
+            placed = {k: sum(any(p.is_shard() for p in q.placements) for q in m.parameters())
+                      for k, m in models.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            HK.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = step(audio)  # untimed
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(TRAIN_STEPS - 1):
+                metrics = step(audio)
+            end.record()
+            end.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000 / (TRAIN_STEPS - 1)
+            ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+            launches[label] = dict(HK.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            prof_wall, busy, n_kernels, rows = profile_step(step, audio, top=5)
+            values = {k: float(v) for k, v in metrics.items()}
+            hooks = sum(len(PTT.placement(m).handles) for m in models.values())
+            base = unsharded[label]
+            print(f"[model parallel {label}] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                  f"over nccl, weights placed Shard on tp: {placed}, data-axis hooks: {hooks}, "
+                  f"{TRAIN_BATCH} x {TRAIN_SAMPLES}: {ms:.3f} ms/step (CUDA events, "
+                  f"{TRAIN_STEPS - 1} steps after one untimed of {first_s:.2f} s; host wall "
+                  f"{wall_ms:.3f} ms) | {TRAIN_BATCH / ms * 1000:.2f} clips/s | peak "
+                  f"{peak / 2**30:.3f} GiB | phase 8 unsharded: {base['ms']:.3f} ms/step "
+                  f"({ms / base['ms']:.3f}x), {TRAIN_BATCH / base['ms'] * 1000:.2f} clips/s, "
+                  f"peak {base['peak'] / 2**30:.3f} GiB | {card}")
+            print(f"[model parallel {label}] metrics: "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in values.items())
+                  + f" | kernel launches: {launches[label]}")
+            if busy > 0:
+                print(f"[model parallel {label}] profiled step (wall {prof_wall:.3f} ms): "
+                      f"{n_kernels} kernels, {busy:.3f} ms a step, device idle "
+                      f"{1 - busy / ms:.1%} of the unprofiled {ms:.3f} ms; by device time: "
+                      + "; ".join(f"{name} {t:.3f} ms x{n}" for name, t, n in rows))
+            else:
+                print(f"[model parallel {label}] profiled step: the profiler recorded no "
+                      f"device time")
+            expect(all(np.isfinite(v) for v in values.values()),
+                   f"model parallel {label}: non-finite {values}")
+            expect(hooks == 0, f"model parallel {label}: {hooks} hooks at one data rank")
+            res[label] = dict(ms=ms, wall_ms=wall_ms, peak=peak, first_s=first_s, busy_ms=busy)
+            if label == "reconstruction":  # the optimizer's share of the host's time
+                plain = DAC(seed=0).to(dev)
+                plain_opt = _adamw(plain)
+                make_train_step(plain, plain_opt, SR)(audio)
+                opt_ms = {"sharded": _optimizer_ms(opts["g"]), "unsharded": _optimizer_ms(plain_opt)}
+                print(f"[model parallel {label}] one more AdamW step alone, on the last step's "
+                      f"gradients (host clock, synchronized): sharded {opt_ms['sharded']:.3f} ms, "
+                      f"unsharded {opt_ms['unsharded']:.3f} ms")
+                res["optimizer_ms"] = opt_ms
+                del plain, plain_opt
+            del models, opts, step, metrics
+            torch.cuda.empty_cache()
+
+        with strict_fp32():
+            for label in ("reconstruction", "adversarial"):
+                models, opts, step = _sharded_models(label, dev, mesh)
+                plain, plain_step = _training_step(label, dev)
+                m_sh = {k: float(v) for k, v in step(audio).items()}
+                m_pl = {k: float(v) for k, v in plain_step(audio).items()}
+                loss_rel = max(abs(m_sh[k] - m_pl[k]) / abs(m_pl[k]) for k in m_pl)
+                worst, share = _max_update_gap(list(models.values()), plain)
+                print(f"[model parallel card check] {label}, strict fp32, sharded against "
+                      f"unsharded from the same weights: loss_rel {loss_rel:.3e} (tol "
+                      f"{TRAIN_TOL['loss_rel']:g}) | after the step: largest parameter gap "
+                      f"{worst / LR:.3f} LR (tol 2), share over {TRAIN_TOL['update_lr']:g} LR "
+                      f"{share:.2e} (tol {TRAIN_TOL['update_share']:g}) | loss sharded "
+                      f"{m_sh['loss']:.6f}, unsharded {m_pl['loss']:.6f}")
+                expect(loss_rel <= TRAIN_TOL["loss_rel"],
+                       f"model parallel {label}: losses against the unsharded step {loss_rel}")
+                expect(worst <= 2.01 * LR and share <= TRAIN_TOL["update_share"],
+                       f"model parallel {label}: parameters after the step differ "
+                       f"({worst / LR:.3f} LR, share {share:.2e})")
+                del plain, plain_step
+                if label == "adversarial":
+                    saved = {"params": {k: _host_tree(m.state_dict()) for k, m in models.items()},
+                             "opt_state": {k: _host_tree(o.state_dict())
+                                           for k, o in opts.items()}}
+                    with tempfile.TemporaryDirectory(dir=root) as tmp:
+                        ck = Checkpointer(tmp)
+                        t0 = time.perf_counter()
+                        folder = ck.save(1, models, opts)
+                        save_s = time.perf_counter() - t0
+                        size = sum(f.stat().st_size for f in folder.iterdir())
+                        fresh, fresh_opts, _ = _sharded_models(label, dev, mesh, seed=5)
+                        t0 = time.perf_counter()
+                        ck.restore(template={"params": fresh, "opt_state": fresh_opts})
+                        torch.cuda.synchronize()
+                        restore_s = time.perf_counter() - t0
+                    got = {"params": {k: _host_tree(m.state_dict()) for k, m in fresh.items()},
+                           "opt_state": {k: _host_tree(o.state_dict())
+                                         for k, o in fresh_opts.items()}}
+                    mismatches = _tree_mismatches(got, saved)
+                    kept = all(_placements_kept(fresh[k], models[k]) for k in models)
+                    print(f"[model parallel checkpoint] {size / 2**20:.1f} MiB (both nets, both "
+                          f"AdamW states) saved in {save_s:.3f} s, restored into fresh sharded "
+                          f"models in {restore_s:.3f} s (host clock): "
+                          f"{'bit-equal' if not mismatches else f'{len(mismatches)} differ'}, "
+                          f"placements {'kept' if kept else 'LOST'}")
+                    expect(not mismatches, f"model parallel checkpoint: {mismatches[:5]}")
+                    expect(kept, "model parallel checkpoint: placements lost")
+                    res["checkpoint"] = dict(mib=size / 2**20, save_s=save_s,
+                                             restore_s=restore_s)
+                    del fresh, fresh_opts
+                del models, opts, step
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    total = {k: sum(c[k] for c in launches.values()) for k in launches["reconstruction"]}
+    print(f"[launches] model parallel: {total} (none of the five kernels lies on this path)")
+    expect(not any(total.values()), f"model parallel: kernels launched {total}")
+    return total, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2662,15 +2858,17 @@ def main():
         del batch
         launches["zoo"], _ = phase_zoo(root, dev, card)
         launches["multitrack"], _ = phase_multitrack(root, dev, card)
-        train_audio, train_launches, _ = phase_codec_training(root, dev, card)
+        train_audio, train_launches, train_results = phase_codec_training(root, dev, card)
         launches.update(train_launches)
         phase_training_card_vs_cpu(train_audio, dev)
-        del train_audio
         launches["serving"], _ = phase_serving(root, dev, card)
         launches["training loop"], _ = phase_training_loop(root, dev, card)
         launches["host io"], _ = phase_host_io(root, dev, card)
         launches["long signal"], _ = phase_long_signal(root, dev, card)
         launches["codec example"] = phase_codec_example(root)
+        launches["model parallel"], _ = phase_model_parallel(root, dev, card, train_audio,
+                                                             train_results)
+        del train_audio
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:

@@ -97,7 +97,7 @@ def test_placement_helpers():
     accel = ml.Accelerator(device="cpu")
     layer = nn.Linear(3, 2)
     assert accel.prepare_model(layer) is layer
-    with pytest.raises(NotImplementedError, match="model-parallel slice"):
+    with pytest.raises(ValueError, match="partition rules need a mesh"):
         accel.prepare_model(layer, rules={"weight": None})
     step = lambda x: x + 1  # noqa: E731
     assert accel.jit_step(step, donate_argnums=(0,)) is step

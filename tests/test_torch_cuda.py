@@ -891,6 +891,60 @@ def test_sharded_loudness_and_signal_mesh_methods_on_card(sp_mesh):
     assert float((sig.audio_data.to_local() - ref.audio_data).abs().max()) < 1e-4
 
 
+def test_model_parallel_step_on_card_equals_unsharded(sp_mesh, tmp_path):
+    """Phase 17's path at a small width on the one-rank nccl group: the tiny
+    DAC and Discriminator through ``shard_params`` on a ``{"dp": 1, "tp":
+    1}`` mesh, one reconstruction and one adversarial step inside
+    ``strict_fp32`` against the unsharded steps from the same weights, and
+    the sharded state through ``Checkpointer`` into fresh sharded models,
+    bit for bit with its placements."""
+    from audiotools_tpu_torch.ml.checkpoint import Checkpointer
+    from audiotools_tpu_torch.models import DAC, Discriminator
+    from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+    from audiotools_tpu_torch.models.train import make_train_step, shard_params
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+    from audiotools_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"dp": 1, "tp": 1})
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = _long(seconds=0.2, seed=4)[:, :1].to(dev)  # (1, 1, 8820)
+
+    def adamw(m):
+        return torch.optim.AdamW(m.parameters(), lr=1e-4, weight_decay=1e-4)
+
+    def nets(seed=0, sharded=True):
+        g = DAC(**SERVING_TINY, seed=seed).to(dev)
+        d = Discriminator(periods=(2, 3), fft_sizes=(256, 128), mpd_channels=(4, 8),
+                          mrd_channels=4, seed=seed + 1).to(dev)
+        return (shard_params(g, mesh), shard_params(d, mesh)) if sharded else (g, d)
+
+    with strict_fp32():
+        losses = {}
+        for sharded in (True, False):
+            g, d = nets(sharded=sharded)
+            rec = make_train_step(g, adamw(g), 16000)(x)
+            adv = make_adversarial_train_step(g, d, adamw(g), adamw(d), 16000)(x)
+            losses[sharded] = [float(rec["loss"]), float(adv["loss"]),
+                               float(adv["loss/discriminator"])]
+        np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
+        g, d = nets()
+        opts = {"g": adamw(g), "d": adamw(d)}
+        make_adversarial_train_step(g, d, opts["g"], opts["d"], 16000)(x)
+        ck = Checkpointer(tmp_path / "ck")
+        ck.save(1, {"g": g, "d": d}, opts)
+        g2, d2 = nets(seed=5)
+        opts2 = {"g": adamw(g2), "d": adamw(d2)}
+        ck.restore(template={"params": {"g": g2, "d": d2}, "opt_state": opts2})
+    for a, b in ((g, g2), (d, d2)):
+        for p, q in zip(a.parameters(), b.parameters()):
+            assert q.placements == p.placements and q.device == p.device
+            assert torch.equal(p.full_tensor(), q.full_tensor())
+    for k in opts:
+        for s1, s2 in zip(opts[k].state.values(), opts2[k].state.values()):
+            assert torch.equal(s1["exp_avg"].full_tensor(), s2["exp_avg"].full_tensor())
+            assert s2["exp_avg"].placements == s1["exp_avg"].placements
+
+
 def test_codec_example_runs_on_card(cuda, tmp_path):
     from audiotools_tpu_torch.examples import codec
     from audiotools_tpu_torch.io import read_wav, write_wav
@@ -1063,3 +1117,222 @@ def test_sharded_ops_over_every_card_equal_local(cuda, tmp_path):
         print(f"rank {r} of {world}: {got}")
         for name, bound in tol.items():
             assert got[name] <= bound, (r, name, got[name])
+
+
+MP_WORKER = r"""
+import datetime, json, sys, time
+import torch
+import torch.distributed as dist
+
+rank, world, address, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+dist.init_process_group("nccl", init_method=address, rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=300), device_id=dev)
+from audiotools_tpu_torch.ml.checkpoint import Checkpointer
+from audiotools_tpu_torch.models import DAC, Discriminator
+from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+from audiotools_tpu_torch.models.train import make_train_step, shard_params
+from audiotools_tpu_torch.ops._fp32 import strict_fp32
+from audiotools_tpu_torch.parallel import make_mesh
+
+# tests/parallel/test_sharded_training.py's models and batch, and the full width
+TINY = (dict(encoder_dim=8, encoder_rates=(2, 2), latent_dim=16, decoder_dim=32, n_codebooks=2,
+             codebook_size=32, codebook_dim=4, sample_rate=16000),
+        dict(periods=(2, 3), fft_sizes=(256, 128), mpd_channels=(4, 8), mrd_channels=4))
+FULL = ({}, {})
+
+
+def audio(batch, t, seed):  # the same batch on every card
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(batch, 1, t, generator=g, device=dev) * 0.1
+
+
+def adamw(m, lr):
+    return torch.optim.AdamW(m.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def nets(cfg, mesh, seed=0):
+    g, d = DAC(**cfg[0], seed=seed).to(dev), Discriminator(**cfg[1], seed=seed + 1).to(dev)
+    if mesh is not None:
+        shard_params(g, mesh)
+        shard_params(d, mesh)
+    return g, d
+
+
+class Bytes:
+    # bytes each rank receives through the layers' collectives (from the shapes)
+    def __init__(self):
+        self.n = {"all_gather": 0, "all_reduce": 0, "calls": 0}
+        self.real = {k: getattr(dist, k) for k in ("all_gather", "all_reduce")}
+
+        def gather(parts, t, group=None, **kw):
+            self.n["all_gather"] += (len(parts) - 1) * t.numel() * t.element_size()
+            self.n["calls"] += 1
+            return self.real["all_gather"](parts, t, group=group, **kw)
+
+        def reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
+            n = dist.get_world_size(group)
+            self.n["all_reduce"] += 2 * (n - 1) * t.numel() * t.element_size() // n
+            self.n["calls"] += 1
+            return self.real["all_reduce"](t, op=op, group=group, **kw)
+
+        dist.all_gather, dist.all_reduce = gather, reduce
+
+
+counts = Bytes()
+
+
+def legs(cfg, x, mesh, sr, key):
+    # dryrun_multichip's legs: a step, step 2 direct and after save/restore, adversarial
+    g, _ = nets(cfg, mesh)
+    opt = adamw(g, 1e-3)
+    step = make_train_step(g, opt, sr)
+    out = {"loss1": float(step(x)["loss"])}
+    if mesh is not None:
+        ck = Checkpointer(f"{tmp}/ck_{key}")
+        ck.save(1, g, opt)
+        out["direct"] = float(step(x)["loss"])
+        g2, _ = nets(cfg, mesh, seed=5)
+        opt2 = adamw(g2, 1e-3)
+        ck.restore(template={"params": g2, "opt_state": opt2})
+        out["restored"] = float(make_train_step(g2, opt2, sr)(x)["loss"])
+    g, d = nets(cfg, mesh)
+    m = make_adversarial_train_step(g, d, adamw(g, 1e-4), adamw(d, 1e-4), sr)(x)
+    out["adv"] = [float(m["loss"]), float(m["loss/discriminator"])]
+    return out
+
+
+def device_split(step, x):
+    # one more step under torch.profiler: device ms in NCCL's kernels and in all
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1000
+    nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower()) / 1000
+    return {"busy_ms": busy, "nccl_ms": nccl, "kernels": sum(e.count for e in kernels)}
+
+
+def timed(label, cfg, x, mesh, n=4):
+    g, d = nets(cfg, mesh)  # mesh None: one card, unsharded
+    if label == "reconstruction":
+        step = make_train_step(g, adamw(g, 1e-4), 44100)
+    else:
+        step = make_adversarial_train_step(g, d, adamw(g, 1e-4), adamw(d, 1e-4), 44100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(x)  # untimed
+    torch.cuda.synchronize()
+    dist.barrier()  # every rank starts its clock together
+    before = dict(counts.n)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n - 1):
+        m = step(x)
+    end.record()
+    end.synchronize()
+    per = {k: (counts.n[k] - before[k]) / (n - 1) for k in before}
+    return {"ms": start.elapsed_time(end) / (n - 1), "peak_gib": torch.cuda.max_memory_allocated()
+            / 2**30, "loss": float(m["loss"]), "per_step": per, **device_split(step, x)}
+
+
+res = {"rank": rank}
+shapes = [(dp, world // dp) for dp in range(world, 0, -1) if world % dp == 0]
+x = audio(8, 256, 0)
+t0 = time.perf_counter()
+with strict_fp32():
+    if rank == 0:
+        res["tiny one card"] = legs(TINY, x, None, 16000, "one")
+    for dp, tp in shapes:
+        mesh = make_mesh({"dp": dp, "tp": tp})
+        mine = x.chunk(dp)[mesh.get_local_rank("dp")]
+        res[f"tiny {dp}x{tp}"] = legs(TINY, mine, mesh, 16000, f"{dp}x{tp}")
+x = audio(16, 33 * 512, 1)
+with strict_fp32():
+    if rank == 0:
+        g, _ = nets(FULL, None)
+        res["full one card"] = float(make_train_step(g, adamw(g, 1e-4), 44100)(x)["loss"])
+        del g
+for label in ("reconstruction", "adversarial"):  # every card alone, unsharded, at once
+    res[f"one card {label}"] = timed(label, FULL, x, None)
+    torch.cuda.empty_cache()
+for dp, tp in [(dp, tp) for dp, tp in shapes if tp > 1 and dp <= 2]:
+    mesh = make_mesh({"dp": dp, "tp": tp})
+    mine = x.chunk(dp)[mesh.get_local_rank("dp")]
+    with strict_fp32():
+        g, _ = nets(FULL, mesh)
+        loss = float(make_train_step(g, adamw(g, 1e-4), 44100)(mine)["loss"])
+        del g
+    res[f"full {dp}x{tp}"] = {"loss1": loss, **{label: timed(label, FULL, mine, mesh)
+                                                for label in ("reconstruction", "adversarial")}}
+    torch.cuda.empty_cache()
+res["seconds"] = time.perf_counter() - t0
+json.dump(res, open(f"{tmp}/{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+
+def test_model_parallel_over_every_card(cuda, tmp_path):
+    """One nccl rank a card, ``dryrun_multichip``'s training legs on every
+    mesh the card count allows ((4, 1), (2, 2), (1, 4) on four): the tiny
+    DAC's (dp, tp) reconstruction step against one card (1e-5, strict fp32),
+    step 2 equal directly and after save and restore, the adversarial step
+    (2e-4); then ``DAC()`` + ``Discriminator()`` at 16 x 16,896 on the
+    meshes with a tensor axis and at most two data ranks: the first step's
+    loss against one card (1e-4, strict fp32), ms/step at default TF32 and
+    the bytes each rank receives through the collectives a step, beside
+    every card's unsharded step at the same time (printed).
+    Needs two cards or more, and skips on one."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, str(r), str(world), address,
+                               str(tmp_path)], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, logs):
+        assert p.returncode == 0, err[-3000:]
+    got = [json.loads((tmp_path / f"{r}.json").read_text()) for r in range(world)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    for r in got:
+        print(json.dumps(r))
+    ref = got[0]["tiny one card"]
+    for key in [k for k in got[0] if k.startswith("tiny ") and k != "tiny one card"]:
+        for r in got:
+            legs = r[key]
+            assert abs(legs["loss1"] - ref["loss1"]) / ref["loss1"] < 1e-5, (key, legs)
+            assert legs["direct"] == legs["restored"], (key, legs)
+            np.testing.assert_allclose(legs["adv"], ref["adv"], rtol=2e-4)
+    full = got[0]["full one card"]
+    for key in [k for k in got[0] if k.startswith("full ") and k != "full one card"]:
+        for r in got:
+            assert abs(r[key]["loss1"] - full) / full < 1e-4, (key, r[key]["loss1"], full)
+            assert all(np.isfinite(r[key][label]["ms"])
+                       for label in ("reconstruction", "adversarial"))
+

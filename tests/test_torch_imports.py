@@ -65,7 +65,7 @@ print(len(sys.argv) - 1)
     "audiotools_tpu_torch.parallel", "audiotools_tpu_torch.parallel.mesh",
     "audiotools_tpu_torch.parallel.timeshard", "audiotools_tpu_torch.parallel.signal_api",
     "audiotools_tpu_torch.examples.codec", "audiotools_tpu_torch.examples.abx",
-    "audiotools_tpu_torch.examples.mushra",
+    "audiotools_tpu_torch.examples.mushra", "audiotools_tpu_torch.parallel.tensor",
 ])
 def test_module_list_covers_the_new_modules(module):
     assert module in MODULES
@@ -88,6 +88,22 @@ PAIRS = sorted(str(p.relative_to(ROOT / "audiotools_tpu"))
                for p in (ROOT / "audiotools_tpu").rglob("*.py")
                if str(p.relative_to(ROOT / "audiotools_tpu")) not in NOT_PORTED)
 HARNESS = PAIRS  # the name the first modules compared were listed under
+# the port's modules without a twin in the JAX package: the kernels' build,
+# wrappers and test shapes, the strict-fp32 context, the JAX-tree
+# converter, the example apps (the JAX package's live in the repository's
+# ``examples/``), and the tensor-parallel layers' collectives and placement
+# (GSPMD does that for the JAX package)
+PORT_MODULES = {"_build.py", "ops/hopper_kernels.py", "ops/ragged_shapes.py", "ops/_fp32.py",
+                "models/convert.py", "examples/__init__.py", "examples/abx.py",
+                "examples/codec.py", "examples/mushra.py", "examples/train_dac.py",
+                "parallel/tensor.py"}
+
+
+def test_every_module_without_a_jax_twin_is_listed():
+    port = {str(p.relative_to(ROOT / "audiotools_tpu_torch"))
+            for p in (ROOT / "audiotools_tpu_torch").rglob("*.py")}
+    assert port - set(PAIRS) == PORT_MODULES
+
 
 # flax modules define __call__ (and setup where they build submodules); the
 # port's nn.Modules define __init__ and forward (the constructor arguments
@@ -119,8 +135,6 @@ JAX_ONLY = {
     "models/dac.py": _FLAX_DAC[0],
     "models/discriminators.py": _FLAX_DISC[0],
     "ml/layers/spectral_gate.py": {"SpectralGate.__call__", "SpectralGate.to"},
-    # model-parallel training waits for the port's model-parallel slice
-    "models/train.py": {"shard_params", "shard_params_rules"},
 }
 PORT_ONLY = {
     # the step folders' file names, and the complete steps on disk
@@ -141,7 +155,7 @@ PORT_ONLY = {
     "models/dac.py": _FLAX_DAC[1] | {"__all__", "Conv1d", "Conv1d.__init__", "Conv1d.forward",
                                    "ConvTranspose1dSame", "ConvTranspose1dSame.__init__",
                                    "ConvTranspose1dSame.forward", "conv_in_dtype",
-                                   "lecun_normal_", "FORMULATIONS"},
+                                   "lecun_normal_", "FORMULATIONS", "column_parallel"},
     "models/discriminators.py": _FLAX_DISC[1] | {"__all__", "WNConv2d", "WNConv2d.__init__",
                                               "WNConv2d.effective_weight", "WNConv2d.forward"},
     "ml/layers/base.py": {"__all__"},
@@ -151,11 +165,17 @@ PORT_ONLY = {
     "parallel/timeshard.py": {"ppermute"},
 }
 SIGNATURES = {
-    # a device instead of a mesh and its data axis
-    "Accelerator.__init__": (("self", "amp", "mesh", "data_axis"), ("self", "amp", "device")),
-    # a module instead of a parameter tree; DistributedDataParallel's options
+    # the mesh is a DeviceMesh over the process group; the device is the port's
+    "Accelerator.__init__": (("self", "amp", "mesh", "data_axis"),
+                             ("self", "amp", "mesh", "data_axis", "device")),
+    # a module instead of a parameter tree, its rules over torch parameter names
+    # and layouts; DistributedDataParallel's options
     "Accelerator.prepare_model": (("self", "params", "rules"),
                                   ("self", "model", "rules", "**kwargs")),
+    # a module placed in place and returned, instead of a parameter tree
+    "shard_params": (("params", "mesh", "tensor_axis"), ("model", "mesh", "tensor_axis")),
+    # the same arguments; its rule reads torch layouts (a layer's output dim)
+    "shard_params_rules": (("mesh", "tensor_axis"), ("mesh", "tensor_axis")),
     # the optimizer, stepped as torch's GradScaler steps it, instead of a callable
     "Accelerator.step": (("self", "optimizer_step", "*args", "**kwargs"), ("self", "optimizer")),
     # torch.profiler has no host tracer level
