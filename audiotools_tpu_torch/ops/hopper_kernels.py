@@ -12,7 +12,9 @@ input that requires grad while grad mode is on raises rather than return a
 result cut from the graph (the differentiable vocoder wraps B in
 ``ops.stretch._FusedPhaseVocoder``). ``LAUNCHES`` counts the kernel
 launches of each wrapper, so a run can show that its main path went
-through the kernels.
+through the kernels. Each wrapper counts, under ``perf.xla_cost``, as its
+function's own work (``wrapper.work(*args)``: the flops and bytes its bound
+is computed from), whether its kernel or its plain version runs.
 """
 import ctypes
 import functools
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ._fp32 import strict_fp32
+from .perf import counts_as
 
 __all__ = [
     "MAX_TAPS",
@@ -141,6 +144,14 @@ def fir_causal_batch_plain(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return F.conv1d(F.pad(x, (L - 1, 0))[None], h.flip(-1)[:, None, :], groups=R)[0]
 
 
+def _fir_batch_work(x, h):
+    """2 flops a tap and output; each row, its output and its taps once."""
+    rows, T = x.shape
+    L = h.shape[-1]
+    return {"flops": 2.0 * rows * T * L, "bytes": 4.0 * rows * (2 * T + L)}
+
+
+@counts_as(_fir_batch_work)
 def fir_causal_batch(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Causal FIR of ``(rows, T)`` float32 signals with per-row kernels
     ``(rows, L)``, ``L <= MAX_TAPS_BATCH``, truncated to ``T`` samples
@@ -277,6 +288,18 @@ def _step_tables(i0b: bytes, i1b: bytes, fracb: bytes, device):
     )
 
 
+def _pv_work(stft_data, i0, i1, frac, with_phasor: bool = False):
+    """~31 fp32 operations a bin and step (two magnitudes, the interpolated
+    magnitude, the rotation, its normalisation, the phasor update); each
+    input frame read once, the output (and the track) written once, the
+    step tables read once."""
+    T = stft_data.shape[-1]
+    rows, n = stft_data.numel() // T, len(i0)
+    return {"flops": 31.0 * rows * n,
+            "bytes": 8.0 * rows * (T + n * (1 + with_phasor)) + 12.0 * n}
+
+
+@counts_as(_pv_work)
 def phase_vocoder_fused(stft_data, i0, i1, frac, with_phasor: bool = False):
     """Fused phasor phase vocoder (``csrc/phase_vocoder.cu``).
 
@@ -335,6 +358,15 @@ def fir_causal_plain(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+def _fir_work(x, h):
+    """2 flops a tap and output; each row and its output once, the shared
+    taps once."""
+    T = x.shape[-1]
+    rows, L = x.numel() // T, h.shape[0]
+    return {"flops": 2.0 * rows * T * L, "bytes": 4.0 * (2 * rows * T + L)}
+
+
+@counts_as(_fir_work)
 def fir_causal(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Causal FIR of ``(..., T)`` float32 signals with one kernel ``(L,)``,
     ``L <= MAX_TAPS``, truncated to ``T`` samples (``csrc/fir_causal_batch.cu``,
@@ -413,6 +445,15 @@ def rotation_plan(rows: int, n: int, aligned: bool = True) -> RotationPlan:
     return RotationPlan(per_block, steps, stages, wide, smem, -(-rows // per_block))
 
 
+def _rot_work(ur, ui, cr, ci):
+    """6 flops a complex product; the two planes in and out and the seeds
+    once."""
+    n = ur.shape[-1]
+    rows = ur.numel() // n
+    return {"flops": 6.0 * rows * n, "bytes": 4.0 * rows * (4 * n + 2)}
+
+
+@counts_as(_rot_work)
 def rotation_cumprod(ur, ui, cr, ci):
     """Exclusive cumulative complex product over the last axis of the
     real-pair planes ``(ur, ui)`` ``(..., n)``, seeded with ``(cr, ci)``
@@ -508,6 +549,17 @@ def istft_synthesis_fused_plain(spec, w, hop: int, inv_env, edge: int = 0):
     return _overlap_add(frames, hop, inv_env.shape[0]) * inv_env
 
 
+def _syn_work(spec, w, hop: int, inv_env, edge: int = 0):
+    """2 flops a product of the frames' re and im parts with the iDFT rows
+    (the edge frames are zeros); the spectrum, the weights and the envelope
+    read once, the output written once."""
+    B, nt, n_freq = spec.shape
+    n_fft = (w.shape[-1] // _syn_layout(n_freq, hop)[0]) * hop
+    return {"flops": 2.0 * B * nt * 2 * n_freq * n_fft,
+            "bytes": 8.0 * spec.numel() + 2.0 * w.numel() + 4.0 * (1 + B) * inv_env.numel()}
+
+
+@counts_as(_syn_work)
 def istft_synthesis_fused(spec, w, hop: int, inv_env, edge: int = 0):
     """Fused iSTFT synthesis (``csrc/istft_synthesis.cu``): the window-fused
     inverse DFT with bf16 operands and fp32 sums, the overlap-add and the

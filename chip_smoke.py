@@ -144,14 +144,29 @@ runs, on card 0:
    models and both optimizers through ``Checkpointer``, restored into fresh
    sharded models bit for bit with its placements. This path runs none of
    the five kernels. The multi-rank (dp, tp) path runs on the CPU tests and
-   across cards in ``tests/test_torch_cuda.py``.
+   across cards in ``tests/test_torch_cuda.py``;
+18. accounting (``ops.perf``, ``ops.benchmark``): each kernel at its
+   main-path shape timed by ``device_time`` (CUDA events, 10 then 20
+   calls) and ``device_time_stats`` beside ``time_ms``, its ``xla_cost``
+   (the kernel launched once) equal to its registered work; the two
+   training steps of phase 8 on fresh seeded models, the reconstruction
+   step by ``device_time_stats(iters=5, repeats=3)`` and the adversarial
+   step by ``device_time_queued`` (fetching the loss), each with ``mfu``
+   from the analytic counters and ``mfu_xla`` / ``hbm_frac`` from one
+   step's ``xla_cost``, whose FLOPs must lie within 1-3x the analytic
+   core; a ``stage_roofline`` row for each stage of the main chain
+   (transforms, pitch shift, mel, loudness) and the chain's ``summarize``;
+   every line with the card's name and power limit.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
 of its operations over the card's peak rate for their type and its bytes,
 each input read once and each output written once, over the memory rate)
 and beside the one PyTorch call that computes the same function, where
-there is one (the port never calls it). Any failed check exits non-zero.
+there is one (the port never calls it); the bound's flops and bytes are the
+wrapper's registered work (``wrapper.work``, what ``ops.perf.xla_cost``
+counts for it), and each kernel's row carries phase 18's ``device_ms``
+beside ``ms``. Any failed check exits non-zero.
 The last lines are the kernel table, the card's name and power limit, and
 ``{"ok": true, "device": ...}``. Without a CUDA device the script exits
 non-zero and prints no result.
@@ -170,17 +185,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audiotools_tpu_torch.ops import perf as PERF
+
 SR = 44100
 BATCH = 64
 DURATION = 5.0
 N_ITER = 5
 N_CHECK = 4
 
-# published peaks of an H100 SXM (dense): fp32 outside the tensor cores,
-# bf16 tensor cores, HBM3
+# published peaks of an H100 SXM (dense): fp32 outside the tensor cores;
+# bf16 tensor cores and HBM3 from the port's accounting (ops/perf.py)
 FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-HBM_BYTES = 3.35e12
+BF16_FLOPS = PERF.PEAK_BF16_FLOPS
+HBM_BYTES = PERF.HBM_BYTES_PER_S
 
 # kernel vs plain version on the card, relative to the largest output. All
 # sum in fp32; E rounds its operands to bf16 as its plain version does and
@@ -346,6 +363,19 @@ LONG_HOP = 1024
 LONG_RATE = 16000
 LONG_TOL = {"fir_abs": 1e-4, "stft_rel": 1e-5, "istft_abs": 1e-5, "round_trip_abs": 1e-4,
             "resample_abs": 1e-6, "lufs_exact_db": 1e-5, "lufs_fir_meter_db": 1e-3}
+
+# accounting (phase 18): the kernels' two-point timers over 10 and 20 calls
+# (the stats the median of 5 pairs); the training steps timed as bench.py
+# times the JAX steps (5 and 10 steps, the reconstruction step's median of
+# 3 pairs); a step's counted FLOPs (ops.perf.xla_cost) at least its analytic
+# core and at most 3x it (tests/test_perf_accounting.py's upper bound: the
+# count adds the losses' matmul STFTs and the MRD's matmul DFT)
+ACCT_KERNEL_ITERS = 10
+ACCT_KERNEL_REPEATS = 5
+ACCT_STEP_ITERS = 5
+ACCT_STEP_REPEATS = 3
+ACCT_FLOP_BAND = (1.0, 3.0)
+ROOFLINE_KEYS = {"stage", "ms", "gbytes", "hbm_frac", "gflops", "mfu_xla"}
 
 
 def fail(msg):
@@ -525,10 +555,11 @@ def phase_kernel_a(dev):
             "fir_causal_batch", lambda: HK.fir_causal_batch(x, h),
             lambda: HK.fir_causal_batch_plain(x, h), 10, 3,
         )
-        gflop = 2.0 * rows * T * L / 1e9
+        work = HK.fir_causal_batch.work(x, h)
+        gflop = work["flops"] / 1e9
         xpad, hflip = F.pad(x, (L - 1, 0))[None], h.flip(-1)[:, None, :].contiguous()
         with strict_fp32():
-            yard = yardsticks(ms, gflop * 1e9, FP32_FLOPS, 4.0 * rows * (2 * T + L),
+            yard = yardsticks(ms, work["flops"], FP32_FLOPS, work["bytes"],
                               "F.conv1d (cuDNN, TF32 off)",
                               lambda: F.conv1d(xpad, hflip, groups=rows))
         print(f"[kernel A] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
@@ -584,12 +615,9 @@ def phase_kernel_b(dev):
             lambda: HK.phase_vocoder_fused(z, i0, i1, frac, with_phasor=with_phasor),
             lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac, with_phasor=with_phasor), 10, 2,
         )
-        # each input frame read once, the output (and the track) written once,
-        # the step tables read once; ~31 fp32 operations a bin and step (two
-        # magnitudes, the interpolated magnitude, the rotation, its
-        # normalisation, the phasor update)
-        nbytes = 8.0 * rows * (shape[-1] + n * (1 + with_phasor)) + 12.0 * n
-        yard = yardsticks(ms, 31.0 * rows * n, FP32_FLOPS, nbytes)
+        work = HK.phase_vocoder_fused.work(z, i0, i1, frac, with_phasor)
+        nbytes = work["bytes"]
+        yard = yardsticks(ms, work["flops"], FP32_FLOPS, nbytes)
         plan = HK.pv_plan(rows, with_phasor)
         sync = f"a barrier every {plan.sync_every} steps" if plan.sync_every else "no barrier"
         print(f"[kernel B] {shape} -> {n} steps, {label} (plan {plan.threads} threads, "
@@ -627,10 +655,11 @@ def phase_kernel_c(dev):
         abs_err, rel_err, ms, plain_ms = compare_kernel(
             "fir_causal", lambda: HK.fir_causal(x, ht), lambda: HK.fir_causal_plain(x, ht), 5, 2,
         )
-        gflop = 2.0 * rows * T * L / 1e9
+        work = HK.fir_causal.work(x, ht)
+        gflop = work["flops"] / 1e9
         xpad, hflip = F.pad(x[:, None], (L - 1, 0)), ht.flip(0)[None, None].contiguous()
         with strict_fp32():
-            yard = yardsticks(ms, gflop * 1e9, FP32_FLOPS, 4.0 * (2 * rows * T + L),
+            yard = yardsticks(ms, work["flops"], FP32_FLOPS, work["bytes"],
                               "F.conv1d (cuDNN, TF32 off)", lambda: F.conv1d(xpad, hflip), 2)
         print(f"[kernel C] {label} ({rows}, {T}) x {L} taps: max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (tol {KERNEL_RTOL:g}) | kernel {ms:.4f} ms "
@@ -656,7 +685,8 @@ def phase_kernel_d(dev):
     # the library call: torch.cumprod of the complex rotations, built
     # outside the timed region; it is inclusive (no seed), D exclusive
     u = torch.complex(ur, ui)
-    yard = yardsticks(ms, 6.0 * rows * n, FP32_FLOPS, 4.0 * rows * (4 * n + 2),
+    work = HK.rotation_cumprod.work(ur, ui, cr, ci)
+    yard = yardsticks(ms, work["flops"], FP32_FLOPS, work["bytes"],
                       "torch.cumprod (complex64, inclusive)", lambda: torch.cumprod(u, dim=-1), 10)
     del u
     plan = HK.rotation_plan(rows, n)
@@ -725,14 +755,14 @@ def phase_kernel_e(dev):
             "istft_synthesis_fused", lambda: HK.istft_synthesis_fused(spec, w, hop, env),
             lambda: HK.istft_synthesis_fused_plain(spec, w, hop, env), 10, 3,
         )
-        gflop = 2.0 * BATCH * nt * 2 * n_freq * n_fft / 1e9
+        work = HK.istft_synthesis_fused.work(spec, w, hop, env)
+        gflop = work["flops"] / 1e9
         # the library call: torch.istft of the same spectrum (frequency-major,
         # copied outside the timed region), Hann window, hop, the same
         # samples after the center trim, fp32 (cuFFT)
         spec_fm = spec.transpose(1, 2).contiguous()
         window = torch.hann_window(n_fft, device=dev)
-        nbytes = spec.numel() * 8 + w.numel() * 2 + env.numel() * 4 + BATCH * env.numel() * 4
-        yard = yardsticks(ms, gflop * 1e9, BF16_FLOPS, nbytes, "torch.istft (fp32, cuFFT)",
+        yard = yardsticks(ms, work["flops"], BF16_FLOPS, work["bytes"], "torch.istft (fp32, cuFFT)",
                           lambda: torch.istft(spec_fm, n_fft, hop, window=window, center=True,
                                               length=hop * (nt - 1)), 10)
         del spec_fm
@@ -1164,15 +1194,14 @@ def phase_multitrack(root, dev, card):
     # kernel B at the two stretch shapes, on the path's own spectrum
     z = PF.stft(mix.reshape(-1, mix.shape[-1]), 2048, 512, "hann", method="matmul")[:, None]
     kernels = {"B": {}, "A": {}}
-    rows = int(np.prod(z.shape[:-1]))
     for factor in MT_FACTORS:
         i0, i1, frac = PS._pv_indices(z.shape[-1], factor)
         abs_err, _, k_ms, plain_ms = compare_kernel(
             "phase_vocoder_fused", lambda: HK.phase_vocoder_fused(z, i0, i1, frac),
             lambda: HK.phase_vocoder_fused_plain(z, i0, i1, frac), 10, 2)
         n = len(i0)
-        nbytes = 8.0 * rows * (z.shape[-1] + n) + 12.0 * n
-        yard = yardsticks(k_ms, 31.0 * rows * n, FP32_FLOPS, nbytes)
+        work = HK.phase_vocoder_fused.work(z, i0, i1, frac)
+        yard = yardsticks(k_ms, work["flops"], FP32_FLOPS, work["bytes"])
         print(f"[multitrack kernel B] {tuple(z.shape)} -> {n} steps (factor {factor:g}): "
               f"max_abs_err {abs_err:.3e} (must be 0) | kernel {k_ms:.4f} ms | plain "
               f"{plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms ({yard['bound_by']}, "
@@ -1197,8 +1226,9 @@ def phase_multitrack(root, dev, card):
             lambda: HK.fir_causal_batch_plain(x, h), 10, 3)
         xpad, hflip = F.pad(x, (L - 1, 0))[None], h.flip(-1)[:, None, :].contiguous()
         with strict_fp32():
-            yard = yardsticks(k_ms, 2.0 * rows_a * T_a * L, FP32_FLOPS,
-                              4.0 * rows_a * (2 * T_a + L), "F.conv1d (cuDNN, TF32 off)",
+            work = HK.fir_causal_batch.work(x, h)
+            yard = yardsticks(k_ms, work["flops"], FP32_FLOPS, work["bytes"],
+                              "F.conv1d (cuDNN, TF32 off)",
                               lambda: F.conv1d(xpad, hflip, groups=rows_a))
         del xpad, hflip
         print(f"[multitrack kernel A] ({rows_a}, {T_a}) x {L} taps (factor {factor:g}): the "
@@ -2824,6 +2854,159 @@ def phase_model_parallel(root, dev, card, audio, unsharded):
     return total, res
 
 
+# ---------------------------------------------------------------------------
+# accounting: device timers, counted work, MFU and rooflines
+# ---------------------------------------------------------------------------
+
+
+def main_kernel_cases(dev):
+    """Each kernel's wrapper and arguments at its main-path shape, the
+    shapes of the kernel table's rows: A at the Equalizer's (64 rows of 5 s
+    + 640, 641 taps), B at the pitch shift's without the track, C at the
+    exact-length meter's (1023 taps), D at 65,600 x 432, E at the chain's
+    synthesis (64 x 432 x 1025, hop 512)."""
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+
+    rng = np.random.RandomState(9)
+    n = int(SR * DURATION)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    nt, n_freq = 432, 1025
+    spec = torch.from_numpy(((rng.randn(BATCH, nt, n_freq) + 1j * rng.randn(BATCH, nt, n_freq))
+                             * 0.05).astype(np.complex64)).to(dev)
+    (w,) = PF._on_device(PF._synthesis_design, ("hann", 2048, 512), dev)
+    (env,) = PF._on_device(PF._inverse_envelope, ("hann", 2048, 512, nt), dev)
+    return {
+        "fir_causal_batch": (HK.fir_causal_batch, (randn(BATCH, n + 640),
+                                                   randn(BATCH, 641, scale=0.05))),
+        "phase_vocoder_fused": (HK.phase_vocoder_fused, pv_main_case(dev)),
+        "fir_causal": (HK.fir_causal, (randn(BATCH, n, scale=0.1), torch.from_numpy(
+            PL._composed_fir(SR, "K-weighting", 512)).to(dev))),
+        "rotation_cumprod": (HK.rotation_cumprod, rotation_main_case(dev)),
+        "istft_synthesis_fused": (HK.istft_synthesis_fused, (spec, w, 512, env)),
+    }
+
+
+def _shapes(args):
+    return ", ".join(str(tuple(a.shape)) if torch.is_tensor(a) else
+                     (f"{len(a)} steps" if isinstance(a, np.ndarray) else repr(a)) for a in args)
+
+
+def phase_accounting(dev, card, ds, batch, train_audio):
+    """The port's performance accounting on the card (``ops.perf``,
+    ``ops.benchmark``): each kernel at its main-path shape timed by
+    ``device_time`` and ``device_time_stats`` beside ``time_ms``, its
+    counted work (``xla_cost`` of the wrapper, the kernel launched) equal to
+    its registered work; the two training steps timed as ``bench.py`` times
+    the JAX ones, with ``mfu`` from the analytic counters and ``mfu_xla`` /
+    ``hbm_frac`` from one step's ``xla_cost``, its FLOPs within
+    ``ACCT_FLOP_BAND`` of the analytic core; a ``stage_roofline`` row for each
+    stage of the main chain and the chain's ``summarize``. Launch counts
+    are set to 0 just before and read just after."""
+    from audiotools_tpu_torch.ops import benchmark as BM
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops import stretch as PS
+
+    res = {"kernels": {}, "steps": {}, "stages": []}
+    HK.reset_launch_counts()
+    for name, (wrapper, args) in main_kernel_cases(dev).items():
+        def call(a, wrapper=wrapper):
+            return wrapper(*a)
+
+        before = HK.LAUNCHES[name]
+        cost = PERF.xla_cost(wrapper, *args)
+        torch.cuda.synchronize()
+        launched = HK.LAUNCHES[name] - before
+        work = wrapper.work(*args)
+        ms = time_ms(lambda: call(args), ACCT_KERNEL_ITERS)
+        seconds = BM.device_time(call, args, iters=ACCT_KERNEL_ITERS)
+        st = BM.device_time_stats(call, args, iters=ACCT_KERNEL_ITERS, repeats=ACCT_KERNEL_REPEATS)
+        print(f"[accounting kernel] {name} ({_shapes(args)}): time_ms {ms:.4f} | device_time "
+              f"{seconds * 1e3:.4f} ms | device_time_stats {st['seconds'] * 1e3:.4f} ms (min "
+              f"{st['min'] * 1e3:.4f}, max {st['max'] * 1e3:.4f}, spread {st['spread']}) | "
+              f"xla_cost {cost['flops']:.6g} flops, {cost['bytes']:.6g} bytes; registered work "
+              f"{work['flops']:.6g}, {work['bytes']:.6g}; kernel launches under xla_cost "
+              f"{launched} | {card}")
+        expect(cost == work, f"{name}: xla_cost {cost} is not its registered work {work}")
+        expect(launched == 1, f"{name}: xla_cost launched the kernel {launched} times, not once")
+        expect(seconds > 1e-9 and st["min"] > 1e-9, f"{name}: device_time at its floor")
+        res["kernels"][name] = dict(ms=ms, device_ms=seconds * 1e3, stats=st, cost=cost)
+
+    for label, analytic in (
+        ("reconstruction", PERF.dac_train_step_flops(TRAIN_BATCH, TRAIN_SAMPLES)),
+        ("adversarial", PERF.adversarial_train_step_flops(TRAIN_BATCH, TRAIN_SAMPLES)),
+    ):
+        models, step = _training_step(label, dev)
+        step(train_audio)  # untimed: cuDNN's algorithm search
+        if label == "reconstruction":
+            st = BM.device_time_stats(step, train_audio, iters=ACCT_STEP_ITERS,
+                                      repeats=ACCT_STEP_REPEATS)
+            seconds, timer = st["seconds"], (f"device_time_stats median of {ACCT_STEP_REPEATS} "
+                                             f"(spread {st['spread']})")
+        else:
+            # the fetch of the last step's loss queues after both updates
+            seconds = BM.device_time_queued(step, train_audio, iters=ACCT_STEP_ITERS,
+                                            sync=lambda out: out["loss"])
+            timer = "device_time_queued"
+        cost = PERF.xla_cost(step, train_audio)
+        summary = PERF.summarize(label, seconds, analytic, cost)
+        ratio = cost["flops"] / analytic
+        print(f"[accounting step] {label} {TRAIN_BATCH} x {TRAIN_SAMPLES}: {seconds * 1e3:.3f} "
+              f"ms/step ({timer}) | analytic {analytic:.6g} FLOP, mfu "
+              f"{PERF.mfu(analytic, seconds):.6f} | xla_cost {cost['flops']:.6g} FLOP "
+              f"({ratio:.4f}x the analytic core), {cost['bytes']:.6g} bytes, mfu_xla "
+              f"{PERF.mfu(cost['flops'], seconds):.6f}, hbm_frac "
+              f"{PERF.hbm_roofline_frac(cost['bytes'], seconds):.6f} | summarize "
+              f"{json.dumps(summary)} | {card}")
+        expect(ACCT_FLOP_BAND[0] <= ratio <= ACCT_FLOP_BAND[1],
+               f"{label}: counted FLOPs {ratio:.4f}x the analytic core, outside {ACCT_FLOP_BAND}")
+        expect(set(summary) == {"mfu", "mfu_xla", "hbm_frac"}, f"{label}: summary {summary}")
+        res["steps"][label] = dict(seconds=seconds, analytic=analytic, cost=cost, **summary)
+        del models, step
+
+    with meter(False):
+        audio = ds.transform(batch["signal"].clone(), **batch["transform_args"]).audio_data
+        shifted = PS.pitch_shift(audio, 2.0, SR, synthesis_method="matmul_bf16",
+                                 pv_formulation="phasor_fused")
+        for name, fn, arg in (
+            ("transforms", lambda b: ds.transform(b["signal"].clone(), **b["transform_args"]),
+             batch),
+            ("pitch_shift", lambda a: PS.pitch_shift(a, 2.0, SR, synthesis_method="matmul_bf16",
+                                                     pv_formulation="phasor_fused"), audio),
+            ("mel", lambda a: PF.mel_spectrogram(a, SR, 80, method="matmul"), shifted),
+            ("loudness", lambda a: PL.loudness(a, SR), shifted),
+        ):
+            row = PERF.stage_roofline(name, fn, arg, iters=N_ITER)
+            print(f"[accounting stage] {json.dumps(row)} | {card}")
+            expect(set(row) == ROOFLINE_KEYS and row["ms"] > 0 and row["gbytes"] > 0,
+                   f"stage_roofline row {row}")
+            res["stages"].append(row)
+
+        def chain(b):
+            return run_chain(ds, b)
+
+        seconds = BM.device_time(chain, batch, iters=N_ITER)
+        cost = PERF.xla_cost(chain, batch)
+    summary = PERF.summarize("chain", seconds, cost=cost)
+    print(f"[accounting chain] main path {BATCH} x {DURATION:g} s: {seconds * 1e3:.3f} ms/batch "
+          f"(device_time) | xla_cost {cost['flops']:.6g} FLOP, {cost['bytes']:.6g} bytes | "
+          f"summarize {json.dumps(summary)} | {card}")
+    expect("hbm_frac" in summary, f"chain summary {summary}")
+    res["chain"] = dict(seconds=seconds, cost=cost, **summary)
+    torch.cuda.synchronize()
+    launches = dict(HK.LAUNCHES)
+    print(f"[launches] accounting: {launches}")
+    expect(all(launches[k] > 0 for k in launches), f"accounting: a kernel was not launched: "
+                                                    f"{launches}")
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2855,7 +3038,6 @@ def main():
         launches.update({label: phase_chain(ds, batch, label, *rest) for label, *rest in PATHS})
         phase_card_vs_cpu(ds, dev)
         launches["pitch_grad"], _ = phase_pitch_grad(batch["signal"].audio_data)
-        del batch
         launches["zoo"], _ = phase_zoo(root, dev, card)
         launches["multitrack"], _ = phase_multitrack(root, dev, card)
         train_audio, train_launches, train_results = phase_codec_training(root, dev, card)
@@ -2868,7 +3050,8 @@ def main():
         launches["codec example"] = phase_codec_example(root)
         launches["model parallel"], _ = phase_model_parallel(root, dev, card, train_audio,
                                                              train_results)
-        del train_audio
+        launches["accounting"], acct = phase_accounting(dev, card, ds, batch, train_audio)
+        del train_audio, batch
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
     if FAILED:
@@ -2885,7 +3068,8 @@ def main():
                 "launches": sum(launches[path][name] for path in paths.split("+")),
                 "max_abs_err": max(v["abs_err"] for v in results.values()),
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                                      "library", "library_ms")}}
+                                      "library", "library_ms")},
+                "device_ms": acct["kernels"][name]["device_ms"]}
 
     kernels = [
         row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+zoo+multitrack", a, "equalizer"),

@@ -92,6 +92,41 @@ def test_fir_kernel_rejects_what_it_cannot_take(cuda):
         HK.fir_causal_batch(torch.zeros(4000, 2, device=cuda).T, torch.zeros(2, 9, device=cuda))
 
 
+def test_fir_kernel_device_time_and_counted_work(cuda):
+    """``ops.benchmark.device_time`` of kernel A (CUDA events, N and 2N
+    calls) is positive and within 2x of the mean of n calls after a warm
+    one; ``ops.perf.xla_cost`` of the wrapper on the card launches the
+    kernel once and counts its registered work, as on the CPU."""
+    from audiotools_tpu_torch.ops import benchmark as BM
+    from audiotools_tpu_torch.ops import perf as PP
+
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(64, 44100 + 640).astype(np.float32)).to(cuda)
+    h = torch.from_numpy((rng.randn(64, 641) * 0.05).astype(np.float32)).to(cuda)
+
+    def call(args):
+        return HK.fir_causal_batch(*args)
+
+    call((x, h))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        call((x, h))
+    end.record()
+    end.synchronize()
+    time_s = start.elapsed_time(end) / 50 / 1e3
+    seconds = BM.device_time(call, (x, h), iters=50)
+    assert seconds > 1e-9
+    assert time_s / 2 <= seconds <= 2 * time_s
+    before = HK.LAUNCHES["fir_causal_batch"]
+    cost = PP.xla_cost(HK.fir_causal_batch, x, h)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["fir_causal_batch"] == before + 1
+    assert cost == HK.fir_causal_batch.work(x, h) == PP.xla_cost(
+        HK.fir_causal_batch, x.cpu(), h.cpu())
+
+
 def _spectrum(rng, shape, zero_bins=True):
     z = (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
     if zero_bins:
