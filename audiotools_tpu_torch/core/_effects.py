@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import util
+from ._dsp import _polar
 from ..ops import filters as _filters
 from ..ops import loudness as _loudness
 from ..ops import stretch as _stretch
@@ -111,17 +112,24 @@ class EffectMixin:
 
     def apply_ir(self, ir, drr=None, ir_eq=None, use_original_phase: bool = False):
         """Convolve with an impulse response after optional EQ and DRR
-        alteration of the IR, then rescale to the dry signal's peak."""
-        if use_original_phase:
-            raise NotImplementedError(
-                "apply_ir(use_original_phase=True) is not ported yet (ROADMAP.md, Queue 1: core/)"
-            )
+        alteration of the IR, then rescale to the dry signal's peak.
+
+        ``use_original_phase``: the wet signal's STFT magnitude on the dry
+        signal's STFT phase (at ``stft_params``), inverted at the dry length,
+        before the rescale."""
         if ir_eq is not None:
             ir = ir.equalizer(ir_eq)
         if drr is not None:
             ir = ir.alter_drr(drr)
         max_spk = torch.abs(self.audio_data).amax(dim=-1, keepdim=True)
+        # the dry phase costs an STFT: take it only when it is used
+        phase = self.phase if use_original_phase else None
         self.convolve(ir)
+        if use_original_phase:
+            # setting audio_data keeps the cached (dry) STFT: take the wet one
+            self.stft()
+            self.stft_data = _polar(self.magnitude, phase)
+            self.istft()
         max_transformed = torch.abs(self.audio_data).amax(dim=-1, keepdim=True)
         scale = torch.clamp(max_spk, min=1e-8) / torch.clamp(max_transformed, min=1e-8)
         self.audio_data = self.audio_data * scale

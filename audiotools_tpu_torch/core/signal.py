@@ -592,10 +592,18 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
     @property
     def phase(self):
         """STFT phase, computing the STFT first if none is cached; setting
-        it keeps the magnitude."""
+        it keeps the magnitude.
+
+        A cell that is exactly zero reads phase 0, whatever sign the FFT gave
+        its zeros: ``angle(-0.0 + 0j)`` is pi, and the CPU's FFT and cuFFT
+        give ``-0.0`` in some cells of digital silence where the JAX
+        package's FFT gives ``+0.0``. The masks and noise fills read the
+        phase of such cells, so both devices then fill what the JAX package
+        fills. No gradient reaches the angle of a zero cell."""
         if self.stft_data is None:
             self.stft()
-        return self.stft_data.angle()
+        z = self.stft_data
+        return torch.where(z == 0, 0.0, z.angle())
 
     @phase.setter
     def phase(self, value):

@@ -653,9 +653,10 @@ def _refill_masked_bins(signal, mag_noise, phase_noise):
 
     As in the JAX package (and the original library), a cell that was
     exactly zero before the mask (in a frame of digital silence) is filled
-    too when its phase reads 0. That phase is the sign of the FFT's zero,
-    which cuFFT and the CPU's FFT can give differently, so on such frames
-    the card and the CPU may fill different cells."""
+    too: ``AudioSignal.phase`` reads 0 at every exactly-zero cell, whatever
+    sign the FFT gave its zeros, so the CPU and the card fill the cells the
+    JAX package fills. They can differ only where one device's FFT cancels
+    to an exact zero and the other's leaves a rounding residue."""
     mag, phase = signal.magnitude, signal.phase
     hole = (mag == 0.0) & (phase == 0.0)
     mag_noise = util.ensure_tensor(mag_noise, device=mag.device)

@@ -24,15 +24,21 @@ runs, on card 0:
    without ``match_stride``; then kernel D's own path, its public entry
    point ``rotation_cumprod`` (no library path calls it), with its launches
    counted;
-5. two paths on one staged batch of 64 clips of 5 s at 44.1 kHz
+5. three paths on a staged batch of 64 clips of 5 s at 44.1 kHz
    (AudioDataset -> DataLoader -> Compose(RoomImpulseResponse,
    BackgroundNoise, Equalizer, VolumeNorm) -> pitch_shift(+2 st) -> mel-80
-   -> BS.1770 loudness), each timed per stage with CUDA events and checked
-   to have launched its kernels: the main path (exact meter, bf16
-   synthesis: A and B) and the reference-parity path (the FIR meter of
-   ``set_fast_meter(True)`` and the fused synthesis: A, B, C and E);
+   -> BS.1770 loudness), each timed per stage with CUDA events, with its
+   peak memory, and checked to have launched its kernels: the main path
+   (exact meter, bf16 synthesis: A and B), the reference-parity path (the
+   FIR meter of ``set_fast_meter(True)`` and the fused synthesis: A, B, C
+   and E), and the original-phase path (the main path with
+   ``RoomImpulseResponse(use_original_phase=True)``: the wet magnitude on
+   the dry STFT phase; its own dataset and staged batch, the same clips;
+   A and B);
 6. the same chains on the card and on the CPU (plain versions) for the
-   first 4 clips, against stated tolerances;
+   first 4 clips, against stated tolerances on every sample; the
+   original-phase path also on a copy of its clips led by 0.25 s of exact
+   zeros (digital silence);
 7. the differentiable pitch shift on the staged batch (64 x 5 s, +2 st):
    the gradient of a scalar loss through ``pitch_shift(pv_formulation=
    "phasor_fused")`` (kernel B with its phasor track under the forward, the
@@ -156,7 +162,9 @@ runs, on card 0:
    step's ``xla_cost``, whose FLOPs must lie within 1-3x the analytic
    core; a ``stage_roofline`` row for each stage of the main chain
    (transforms, pitch shift, mel, loudness) and the chain's ``summarize``;
-   every line with the card's name and power limit.
+   the same kernel timers at the kernel table's other rows (A and B at the
+   multitrack shapes, B with its phasor track); every line with the card's
+   name and power limit.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -247,12 +255,13 @@ TRAIN_TOL = {"latent_rel": 1e-4, "decoded_rel": 1e-4, "loss_rel": 1e-4,
 # round differently on the card), so they are judged by the share of
 # samples differing by more than that bound. TimeNoise and FrequencyNoise
 # fill every cell whose magnitude and phase are 0, as the JAX package does,
-# so also a cell that was exactly zero before their mask when the sign of
-# the FFT's zero gives it phase 0. Such cells lie in frames of digital
-# silence or of few distinct values (the quantizers make both), where one
-# FFT may cancel to an exact zero and the other not, and cuFFT and the
-# CPU's FFT sign their zeros differently. Their bound holds outside the
-# frames in which either device's STFT of their input holds an exact zero.
+# so also a cell that was exactly zero before their mask: the phase of an
+# exactly-zero cell reads 0 on both devices, whatever sign cuFFT or the
+# CPU's FFT gave its zeros, so frames of digital silence are filled alike.
+# In frames of few distinct values (the quantizers make them) one FFT may
+# cancel to an exact zero where the other leaves a rounding residue. Their
+# bound holds outside the frames that hold a cell the fill reads as empty
+# on one device and not on the other.
 ZOO_RUNS = 6  # the first through Compose.transform, untimed
 ZOO_ABS = 1e-4
 ZOO_SHARE = 1e-3
@@ -867,12 +876,15 @@ def phase_ragged(dev):
         expect(v == 0.0, f"kernel {k} differs from its plain version at a ragged shape")
 
 
-def make_dataset(root, n_examples):
+def make_dataset(root, n_examples, use_original_phase=False):
+    """The main path's AudioDataset; ``use_original_phase``: the reverb keeps
+    the dry signal's STFT phase (``RoomImpulseResponse``'s flag)."""
     from audiotools_tpu_torch.data import transforms as tfm
     from audiotools_tpu_torch.data.datasets import AudioDataset, AudioLoader
 
     transform = tfm.Compose(
-        tfm.RoomImpulseResponse(sources=[str(root / "ir.csv")]),
+        tfm.RoomImpulseResponse(sources=[str(root / "ir.csv")],
+                                use_original_phase=use_original_phase),
         tfm.BackgroundNoise(sources=[str(root / "nz.csv")]),
         tfm.Equalizer(),
         tfm.VolumeNorm(),
@@ -909,13 +921,19 @@ def _holds(tfm, kinds):
     return isinstance(tfm, kinds) or any(_holds(c, kinds) for c in getattr(tfm, "transforms", []))
 
 
-def _zero_cell_samples(signal):
+def _one_sided_empty_samples(signal, dev):
     """``(B, C, T)`` bool: the samples inside a frame whose STFT (at the
-    signal's parameters) holds a cell that is exactly zero."""
+    signal's parameters) holds a cell that the noise fills read as empty
+    (magnitude and phase 0, i.e. exactly zero) on one device and not on the
+    other."""
+    def empty(s):
+        s.stft()
+        return ((s.magnitude == 0) & (s.phase == 0)).cpu()
+
     p = signal.stft_params
-    zero = (signal.clone().stft().abs() == 0).any(dim=-2)  # (B, C, frames)
+    one_sided = (empty(signal.clone()) != empty(signal.clone().to(dev))).any(dim=-2)
     out = torch.zeros(signal.audio_data.shape, dtype=torch.bool)
-    for b, c, t in zero.nonzero().tolist():
+    for b, c, t in one_sided.nonzero().tolist():
         start = t * p.hop_length - p.window_length // 2
         out[b, c, max(start, 0):max(start + p.window_length, 0)] = True
     return out
@@ -999,7 +1017,7 @@ def phase_zoo(root, dev, card):
     for tfm in ds.transform:
         kept = torch.ones(signal.audio_data.shape, dtype=torch.bool)
         if _holds(tfm, (tfms.TimeNoise, tfms.FrequencyNoise)):
-            kept = ~(_zero_cell_samples(signal) | _zero_cell_samples(signal.clone().to(dev)))
+            kept = ~_one_sided_empty_samples(signal, dev)
         got = tfm(signal.clone().to(dev), **on_card["transform_args"]["Compose"])
         signal = tfm(signal, **on_cpu["transform_args"]["Compose"])
         diff = (got.audio_data.cpu() - signal.audio_data).abs()
@@ -1011,7 +1029,8 @@ def phase_zoo(root, dev, card):
             expect(err <= ZOO_ABS, f"zoo card vs CPU {tfm.name}: {err:.3e} > {ZOO_ABS:g}")
     print(f"[zoo card vs cpu] {N_CHECK} clips, each transform on the same input: max abs err "
           f"(tol {ZOO_ABS:g}) / share of samples over it (quantizers, tol {ZOO_SHARE:g}) / share "
-          f"left out (frames where either STFT holds an exact zero; noise fills only): " + ", ".join(
+          f"left out (frames holding a cell exactly zero on one device only; noise fills only): "
+          + ", ".join(
               f"{n} {e:.3e}/{s:.2e}/{x:.2e}" for n, (e, s, x) in errors.items()))
     expect(bool(torch.isfinite(signal.audio_data).all()), "zoo on the CPU: non-finite output")
     return launches, dict(ms=ms, stages=dict(zip(names, stages.tolist())), peak=peak,
@@ -1349,12 +1368,34 @@ def meter(fast: bool):
         PL.set_fast_meter(False)
 
 
-# (label, fast meter, synthesis method, kernels the path must launch)
+# (label, the reverb's use_original_phase, fast meter, synthesis method,
+# kernels the path must launch)
 PATHS = [
-    ("main", False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
-    ("parity", True, "matmul_bf16_fused",
+    ("main", False, False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
+    ("parity", False, True, "matmul_bf16_fused",
      ("fir_causal_batch", "phase_vocoder_fused", "fir_causal", "istft_synthesis_fused")),
+    ("original_phase", True, False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
 ]
+# the silence-led copies of the card-vs-CPU check: their first 0.25 s set
+# to exact zeros (digital silence, where the sign of the FFT's zeros decided
+# the dry phase before it read 0 at every exactly-zero cell)
+SILENT_LEAD_S = 0.25
+
+
+def stage_batch(root, use_original_phase):
+    """The main path's dataset (with the reverb's flag) and its first batch
+    through ``DataLoader``, staged to the card."""
+    from audiotools_tpu_torch.data import DataLoader
+
+    ds = make_dataset(root, BATCH, use_original_phase=use_original_phase)
+    t0 = time.perf_counter()
+    batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8)))  # to the card by default
+    torch.cuda.synchronize()
+    print(f"[chain] first batch through DataLoader (8 workers, staged to the card; "
+          f"use_original_phase={use_original_phase}): {time.perf_counter() - t0:.2f} s")
+    expect(batch["signal"].device.type == "cuda",
+           f"the loader staged the batch on {batch['signal'].device}, not the card")
+    return ds, batch
 
 
 def phase_chain(ds, batch, label, fast_meter, synthesis_method, must_launch):
@@ -1367,6 +1408,7 @@ def phase_chain(ds, batch, label, fast_meter, synthesis_method, must_launch):
         run_chain(ds, batch, synthesis_method)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         stages = np.zeros(4)
         t0 = time.perf_counter()
         for _ in range(N_ITER):
@@ -1384,7 +1426,8 @@ def phase_chain(ds, batch, label, fast_meter, synthesis_method, must_launch):
     print(f"{tag} meter {'FIR through kernel C' if fast_meter else 'exact'}, synthesis "
           f"{synthesis_method}: {BATCH} x {DURATION:g} s @ {SR} Hz: {ms:.3f} ms/batch (CUDA "
           f"events; host wall {wall_ms:.3f} ms) | {BATCH / ms * 1000:.1f} clips/s | "
-          f"{BATCH * DURATION / ms * 1000:.0f}x real time | peak {peak / 2**30:.3f} GiB")
+          f"{BATCH * DURATION / ms * 1000:.0f}x real time | peak {peak / 2**30:.3f} GiB "
+          f"({resident / 2**30:.3f} GiB resident before the runs: the staged batches)")
     print(f"{tag} stages (ms): " + ", ".join(
         f"{n} {v:.3f}" for n, v in zip(("transforms", "pitch_shift", "mel", "loudness"), stages)))
     print(f"{tag} kernel launches ({N_ITER + 1} runs): {launches}")
@@ -1400,30 +1443,50 @@ def phase_chain(ds, batch, label, fast_meter, synthesis_method, must_launch):
     return launches
 
 
-def phase_card_vs_cpu(ds, dev):
+def _silence_led(items):
+    """A copy of collated items whose clips start with ``SILENT_LEAD_S`` of
+    exact zeros."""
+    items = dict(items)
+    signal = items["signal"].clone()
+    audio = signal.audio_data.clone()
+    audio[..., :int(SILENT_LEAD_S * SR)] = 0.0
+    signal.audio_data = audio
+    items["signal"] = signal
+    return items
+
+
+def phase_card_vs_cpu(ds, dev, ds_original_phase):
+    """The chains on the card and on the CPU for the first N_CHECK clips,
+    every sample held; the original-phase path also on silence-led copies
+    of its clips."""
     from audiotools_tpu_torch.core import util
 
     items = util.collate([ds[i] for i in range(N_CHECK)])
-    for fast_meter, method, tol in (
-        (False, "matmul", CHAIN_TOL["matmul"]),
-        (False, "matmul_bf16", CHAIN_TOL["matmul_bf16"]),
-        (True, "matmul_bf16_fused", CHAIN_TOL["matmul_bf16"]),
+    op_items = util.collate([ds_original_phase[i] for i in range(N_CHECK)])
+    for label, d, its, fast_meter, method, tol in (
+        ("main", ds, items, False, "matmul", CHAIN_TOL["matmul"]),
+        ("main", ds, items, False, "matmul_bf16", CHAIN_TOL["matmul_bf16"]),
+        ("parity", ds, items, True, "matmul_bf16_fused", CHAIN_TOL["matmul_bf16"]),
+        ("original_phase", ds_original_phase, op_items, False, "matmul_bf16",
+         CHAIN_TOL["matmul_bf16"]),
+        (f"original_phase, first {SILENT_LEAD_S:g} s silent", ds_original_phase,
+         _silence_led(op_items), False, "matmul_bf16", CHAIN_TOL["matmul_bf16"]),
     ):
         with meter(fast_meter):
             a_gpu, m_gpu, l_gpu = (t.cpu() for t in run_chain(
-                ds, util.prepare_batch(items, dev), synthesis_method=method))
+                d, util.prepare_batch(its, dev), synthesis_method=method))
             a_cpu, m_cpu, l_cpu = run_chain(
-                ds, util.prepare_batch(items, "cpu"), synthesis_method=method)
+                d, util.prepare_batch(its, "cpu"), synthesis_method=method)
         err = {
             "audio_abs": float((a_gpu - a_cpu).abs().max()),
             "mel_rel": float((m_gpu - m_cpu).abs().max() / m_cpu.abs().max()),
             "lufs_db": float((l_gpu - l_cpu).abs().max()),
         }
-        print(f"[card vs cpu] {N_CHECK} clips, meter {'FIR' if fast_meter else 'exact'}, "
-              f"synthesis {method}: " + ", ".join(
+        print(f"[card vs cpu] {label}: {N_CHECK} clips, meter {'FIR' if fast_meter else 'exact'}, "
+              f"synthesis {method}, every sample: " + ", ".join(
                   f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in err.items()))
         for k, v in err.items():
-            expect(v <= tol[k], f"card vs CPU {k} {v:.3e} > {tol[k]:g} ({method})")
+            expect(v <= tol[k], f"card vs CPU {k} {v:.3e} > {tol[k]:g} ({label}, {method})")
 
 
 def _graph_has(t, node_name):
@@ -2891,52 +2954,98 @@ def main_kernel_cases(dev):
     }
 
 
+def other_kernel_cases(dev):
+    """The kernel table's other rows, by label: A at the multitrack EQs'
+    shapes (64 rows of 5 s / 1.25 and 5 s / 0.8, + 640; 641 taps), B at the
+    multitrack stretches' (64 x 1 x 1025 bins, 431 frames -> 345 / 539
+    steps), and B with its phasor track at the pitch shift's shape (the
+    differentiable vocoder's forward)."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import stretch as PS
+
+    rng = np.random.RandomState(10)
+    n = int(SR * DURATION)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    tm = (BATCH, 1, 1 + n // 512, 1025)
+    z = torch.from_numpy((rng.randn(*tm) + 1j * rng.randn(*tm)).astype(np.complex64)).to(
+        dev).transpose(-1, -2)
+    cases = {}
+    for factor in MT_FACTORS:
+        cases[f"fir_causal_batch multitrack {factor:g}"] = (
+            "fir_causal_batch", HK.fir_causal_batch,
+            (randn(BATCH, int(n / factor) + 640), randn(BATCH, 641, scale=0.05)))
+        cases[f"phase_vocoder_fused multitrack {factor:g}"] = (
+            "phase_vocoder_fused", HK.phase_vocoder_fused, (z, *PS._pv_indices(tm[2], factor)))
+    cases["phase_vocoder_fused with_phasor"] = (
+        "phase_vocoder_fused", HK.phase_vocoder_fused, (*pv_main_case(dev), True))
+    return cases
+
+
+def _account_kernel(label, name, wrapper, args, card):
+    """One kernel call timed by ``time_ms``, ``device_time`` and
+    ``device_time_stats``, and its ``xla_cost`` (the kernel launched once)
+    held to its registered work."""
+    from audiotools_tpu_torch.ops import benchmark as BM
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    def call(a):
+        return wrapper(*a)
+
+    before = HK.LAUNCHES[name]
+    cost = PERF.xla_cost(wrapper, *args)
+    torch.cuda.synchronize()
+    launched = HK.LAUNCHES[name] - before
+    work = wrapper.work(*args)
+    ms = time_ms(lambda: call(args), ACCT_KERNEL_ITERS)
+    seconds = BM.device_time(call, args, iters=ACCT_KERNEL_ITERS)
+    st = BM.device_time_stats(call, args, iters=ACCT_KERNEL_ITERS, repeats=ACCT_KERNEL_REPEATS)
+    print(f"[accounting kernel] {label} ({_shapes(args)}): time_ms {ms:.4f} | device_time "
+          f"{seconds * 1e3:.4f} ms | device_time_stats {st['seconds'] * 1e3:.4f} ms (min "
+          f"{st['min'] * 1e3:.4f}, max {st['max'] * 1e3:.4f}, spread {st['spread']}) | "
+          f"xla_cost {cost['flops']:.6g} flops, {cost['bytes']:.6g} bytes; registered work "
+          f"{work['flops']:.6g}, {work['bytes']:.6g}; kernel launches under xla_cost "
+          f"{launched} | {card}")
+    expect(cost == work, f"{label}: xla_cost {cost} is not its registered work {work}")
+    expect(launched == 1, f"{label}: xla_cost launched the kernel {launched} times, not once")
+    expect(seconds > 1e-9 and st["min"] > 1e-9, f"{label}: device_time at its floor")
+    return dict(ms=ms, device_ms=seconds * 1e3, stats=st, cost=cost)
+
+
 def _shapes(args):
     return ", ".join(str(tuple(a.shape)) if torch.is_tensor(a) else
                      (f"{len(a)} steps" if isinstance(a, np.ndarray) else repr(a)) for a in args)
 
 
-def phase_accounting(dev, card, ds, batch, train_audio):
+def phase_accounting(dev, card, ds, batch, train_audio, ds_original_phase):
     """The port's performance accounting on the card (``ops.perf``,
     ``ops.benchmark``): each kernel at its main-path shape timed by
     ``device_time`` and ``device_time_stats`` beside ``time_ms``, its
     counted work (``xla_cost`` of the wrapper, the kernel launched) equal to
-    its registered work; the two training steps timed as ``bench.py`` times
+    its registered work, and so at the kernel table's other shapes
+    (``other_kernel_cases``); the two training steps timed as ``bench.py`` times
     the JAX ones, with ``mfu`` from the analytic counters and ``mfu_xla`` /
     ``hbm_frac`` from one step's ``xla_cost``, its FLOPs within
     ``ACCT_FLOP_BAND`` of the analytic core; a ``stage_roofline`` row for each
-    stage of the main chain and the chain's ``summarize``. Launch counts
-    are set to 0 just before and read just after."""
+    stage of the main chain and the chain's ``summarize``; rows for the
+    original-phase path's transforms stage (``ds_original_phase``) and for
+    the reverb alone in both configurations, on the same batch (the two
+    datasets draw the same arguments). Launch counts are set to 0 just before and read
+    just after."""
     from audiotools_tpu_torch.ops import benchmark as BM
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import loudness as PL
     from audiotools_tpu_torch.ops import stretch as PS
 
-    res = {"kernels": {}, "steps": {}, "stages": []}
+    res = {"kernels": {}, "other_kernels": {}, "steps": {}, "stages": []}
     HK.reset_launch_counts()
     for name, (wrapper, args) in main_kernel_cases(dev).items():
-        def call(a, wrapper=wrapper):
-            return wrapper(*a)
-
-        before = HK.LAUNCHES[name]
-        cost = PERF.xla_cost(wrapper, *args)
-        torch.cuda.synchronize()
-        launched = HK.LAUNCHES[name] - before
-        work = wrapper.work(*args)
-        ms = time_ms(lambda: call(args), ACCT_KERNEL_ITERS)
-        seconds = BM.device_time(call, args, iters=ACCT_KERNEL_ITERS)
-        st = BM.device_time_stats(call, args, iters=ACCT_KERNEL_ITERS, repeats=ACCT_KERNEL_REPEATS)
-        print(f"[accounting kernel] {name} ({_shapes(args)}): time_ms {ms:.4f} | device_time "
-              f"{seconds * 1e3:.4f} ms | device_time_stats {st['seconds'] * 1e3:.4f} ms (min "
-              f"{st['min'] * 1e3:.4f}, max {st['max'] * 1e3:.4f}, spread {st['spread']}) | "
-              f"xla_cost {cost['flops']:.6g} flops, {cost['bytes']:.6g} bytes; registered work "
-              f"{work['flops']:.6g}, {work['bytes']:.6g}; kernel launches under xla_cost "
-              f"{launched} | {card}")
-        expect(cost == work, f"{name}: xla_cost {cost} is not its registered work {work}")
-        expect(launched == 1, f"{name}: xla_cost launched the kernel {launched} times, not once")
-        expect(seconds > 1e-9 and st["min"] > 1e-9, f"{name}: device_time at its floor")
-        res["kernels"][name] = dict(ms=ms, device_ms=seconds * 1e3, stats=st, cost=cost)
+        res["kernels"][name] = _account_kernel(name, name, wrapper, args, card)
+    for label, (name, wrapper, args) in other_kernel_cases(dev).items():
+        res["other_kernels"][label] = _account_kernel(label, name, wrapper, args, card)
 
     for label, analytic in (
         ("reconstruction", PERF.dac_train_step_flops(TRAIN_BATCH, TRAIN_SAMPLES)),
@@ -2974,13 +3083,22 @@ def phase_accounting(dev, card, ds, batch, train_audio):
         audio = ds.transform(batch["signal"].clone(), **batch["transform_args"]).audio_data
         shifted = PS.pitch_shift(audio, 2.0, SR, synthesis_method="matmul_bf16",
                                  pv_formulation="phasor_fused")
+        def transforms(d):
+            return lambda b: d.transform(b["signal"].clone(), **b["transform_args"])
+
+        def reverb(d):
+            rir = next(iter(d.transform))  # RoomImpulseResponse, as Compose calls it
+            return lambda b: rir(b["signal"].clone(), **b["transform_args"]["Compose"])
+
         for name, fn, arg in (
-            ("transforms", lambda b: ds.transform(b["signal"].clone(), **b["transform_args"]),
-             batch),
+            ("transforms", transforms(ds), batch),
             ("pitch_shift", lambda a: PS.pitch_shift(a, 2.0, SR, synthesis_method="matmul_bf16",
                                                      pv_formulation="phasor_fused"), audio),
             ("mel", lambda a: PF.mel_spectrogram(a, SR, 80, method="matmul"), shifted),
             ("loudness", lambda a: PL.loudness(a, SR), shifted),
+            ("transforms original_phase", transforms(ds_original_phase), batch),
+            ("reverb", reverb(ds), batch),
+            ("reverb original_phase", reverb(ds_original_phase), batch),
         ):
             row = PERF.stage_roofline(name, fn, arg, iters=N_ITER)
             print(f"[accounting stage] {json.dumps(row)} | {card}")
@@ -3025,18 +3143,17 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         build_fixture_tree(root)
-        ds = make_dataset(root, BATCH)
-        from audiotools_tpu_torch.data import DataLoader
-
-        t0 = time.perf_counter()
-        batch = next(iter(DataLoader(ds, batch_size=BATCH, num_workers=8)))  # to the card by default
-        torch.cuda.synchronize()
-        print(f"[chain] first batch through DataLoader (8 workers, staged to the card): "
-              f"{time.perf_counter() - t0:.2f} s")
-        expect(batch["signal"].device.type == "cuda",
-               f"the loader staged the batch on {batch['signal'].device}, not the card")
-        launches.update({label: phase_chain(ds, batch, label, *rest) for label, *rest in PATHS})
-        phase_card_vs_cpu(ds, dev)
+        staged = {}
+        for label, original_phase, *rest in PATHS:
+            if original_phase not in staged:
+                staged[original_phase] = stage_batch(root, original_phase)
+            launches[label] = phase_chain(*staged[original_phase], label, *rest)
+        expect(torch.equal(staged[False][1]["signal"].audio_data,
+                           staged[True][1]["signal"].audio_data),
+               "the original-phase dataset drew other clips than the main path's")
+        (ds, batch), ds_original_phase = staged[False], staged[True][0]
+        phase_card_vs_cpu(ds, dev, ds_original_phase)
+        del staged
         launches["pitch_grad"], _ = phase_pitch_grad(batch["signal"].audio_data)
         launches["zoo"], _ = phase_zoo(root, dev, card)
         launches["multitrack"], _ = phase_multitrack(root, dev, card)
@@ -3050,7 +3167,8 @@ def main():
         launches["codec example"] = phase_codec_example(root)
         launches["model parallel"], _ = phase_model_parallel(root, dev, card, train_audio,
                                                              train_results)
-        launches["accounting"], acct = phase_accounting(dev, card, ds, batch, train_audio)
+        launches["accounting"], acct = phase_accounting(dev, card, ds, batch, train_audio,
+                                                        ds_original_phase)
         del train_audio, batch
     print("[launches] kernel launches by path (training: all steps of the path): " + json.dumps(
         {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}))
@@ -3072,8 +3190,10 @@ def main():
                 "device_ms": acct["kernels"][name]["device_ms"]}
 
     kernels = [
-        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+zoo+multitrack", a, "equalizer"),
-        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main+multitrack", b, "path"),
+        row("fir_causal_batch", "fir_causal_batch.cu", 182, "main+original_phase+zoo+multitrack",
+            a, "equalizer"),
+        row("phase_vocoder_fused", "phase_vocoder.cu", 309, "main+original_phase+multitrack", b,
+            "path"),
         row("fir_causal", "fir_causal_batch.cu", 100, "parity", c, "meter"),
         # D has no caller in the library: its own path is its entry point
         row("rotation_cumprod", "rotation_cumprod.cu", 417, "rotation", d),

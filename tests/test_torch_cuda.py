@@ -511,6 +511,32 @@ def test_transform_on_card_matches_cpu(cuda, zoo_sources, name):
         assert launched > 0  # their equalizers run through kernel A
 
 
+@pytest.mark.parametrize("lead", [0, 11025])
+def test_original_phase_reverb_on_card_matches_cpu(cuda, zoo_sources, lead):
+    """``RoomImpulseResponse(use_original_phase=True)`` on 4 clips of 5 s,
+    with and without 0.25 s of digital silence at their start: the dry
+    phase of an exactly-zero cell reads 0 on both devices, so every sample
+    holds the zoo's bound."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.core import util
+    from audiotools_tpu_torch.data import transforms as tfm
+    from chip_smoke import speech_like
+
+    transform = tfm.RoomImpulseResponse(sources=[str(zoo_sources / "ir.csv")],
+                                        use_original_phase=True)
+    x = np.stack([speech_like(30 + i, 5.0)[None] for i in range(4)])
+    x[..., :lead] = 0.0
+    item = AudioSignal(x[:1].copy(), 44100, device="cpu")
+    drawn = transform.batch_instantiate([0, 1, 2, 3], item)
+    got = transform(AudioSignal(torch.from_numpy(x).to(cuda), 44100),
+                    **util.prepare_batch(drawn, cuda))
+    want = transform(AudioSignal(torch.from_numpy(x), 44100), **util.prepare_batch(drawn, "cpu"))
+    assert got.device.type == "cuda" and got.audio_data.shape == want.audio_data.shape
+    assert float((got.audio_data.cpu() - want.audio_data).abs().max()) <= ZOO_ABS
+    if lead:  # the card's dry STFT holds exactly-zero cells
+        assert bool((AudioSignal(torch.from_numpy(x).to(cuda), 44100).stft() == 0).any())
+
+
 @pytest.mark.parametrize("channels", [1, 2])
 def test_clip_distortion_at_full_width_matches_cpu(cuda, channels):
     """64 x 220,500 samples (and 64 x 2 x 220,500, over torch.quantile's

@@ -312,3 +312,27 @@ def test_top_level_has_the_jax_packages_entry_points(name):
     else:
         assert port.__name__ == getattr(audiotools_tpu, name).__name__.replace(
             "audiotools_tpu", "audiotools_tpu_torch")
+
+
+def _refusals(path):
+    """Line numbers of ``raise NotImplementedError`` (bare or called)."""
+    lines = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Raise) and node.exc is not None:
+            exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
+            if isinstance(exc, ast.Name) and exc.id == "NotImplementedError":
+                lines.append(node.lineno)
+    return lines
+
+
+def test_no_module_refuses_work_the_jax_package_does(tmp_path):
+    """The port does all that the JAX package does: no module of it raises
+    ``NotImplementedError`` (a stub of a function not yet ported)."""
+    found = {str(p.relative_to(ROOT)): _refusals(p)
+             for p in sorted((ROOT / "audiotools_tpu_torch").rglob("*.py"))}
+    assert len(found) == len(MODULES)
+    assert {k: v for k, v in found.items() if v} == {}
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f(x):\n    if x:\n        raise NotImplementedError('no')\n"
+                     "    raise NotImplementedError\n    raise ValueError\n")
+    assert sorted(_refusals(probe)) == [3, 4]

@@ -59,6 +59,94 @@ def test_apply_ir_with_drr_and_eq_matches_jax(drr):
     _close(got, want, 1e-5)
 
 
+# a silent lead of 20,000 samples, or half the signal where it is shorter
+# than 40,000: frames of digital silence, where the FFT's zeros carry a sign
+LEAD = 20000
+
+
+def _lead(x, lead):
+    x = x.copy()
+    x[..., : min(lead, x.shape[-1] // 2)] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("lead", [0, LEAD])
+@pytest.mark.parametrize("drr_eq", [False, True])
+@pytest.mark.parametrize("T,K", [(SR, 9000), (20000, 4096), (6000, 6000), (6000, 9000)])
+def test_apply_ir_with_original_phase_matches_jax(T, K, drr_eq, lead):
+    """F4: the wet magnitude on the dry phase, through every branch of
+    ``convolve``, with and without the IR's EQ and DRR, with and without a
+    silent lead (where the dry phase of an exactly-zero cell reads 0 in both
+    packages, F5). The pin of ``test_apply_ir_with_drr_and_eq_matches_jax``,
+    over every sample."""
+    x = _lead(_audio(1, (2, 1, T)), lead)
+    ir = _ir(2, 2, K)
+    eq = -np.random.RandomState(5).rand(2, 6).astype(np.float32)
+    drr = np.array([5.0, 25.0], np.float32)
+    p, j = _pair(x)
+    got = p.apply_ir(AudioSignal(ir, SR, device="cpu"), drr if drr_eq else None,
+                     torch.from_numpy(eq) if drr_eq else None, use_original_phase=True)
+    want = j.apply_ir(JSignal(ir, SR), drr if drr_eq else None,
+                      jnp.asarray(eq) if drr_eq else None, use_original_phase=True)
+    _close(got, want, 1e-5)
+    assert got.stft_data is not None
+
+
+def test_apply_ir_with_original_phase_reads_the_wet_spectrum():
+    """With a dry STFT cached beforehand, the magnitude put on the dry phase
+    is still the wet signal's: the convolved audio's STFT is taken anew (the
+    audio setter keeps the cached spectrum), as in the JAX package."""
+    x = _lead(_audio(3, (2, 1, 2 * SR)), LEAD)
+    ir = _ir(4, 2, SR)
+    p, j = _pair(x)
+    dry = p.stft().clone()
+    j.stft()
+    got = p.apply_ir(AudioSignal(ir, SR, device="cpu"), use_original_phase=True)
+    want = j.apply_ir(JSignal(ir, SR), use_original_phase=True)
+    _close(got, want, 1e-5)
+    # not the dry magnitude on the dry phase: that is the dry signal again
+    assert np.abs(got.audio_data.numpy() - x).max() > 1e-2
+    assert not torch.equal(got.stft_data.abs(), dry.abs())
+
+
+def test_phase_reads_zero_at_every_exactly_zero_cell():
+    """F5: ``phase`` is 0 where the spectrum is exactly ``0 + 0j``, as the
+    JAX package's reads, although the CPU's FFT gives ``-0.0`` (angle pi) in
+    some such cells; elsewhere it is ``angle``. The magnitude setter then
+    puts a new magnitude at phase 0 there, as the JAX package does."""
+    x = _lead(_audio(30, (2, 1, 2 * SR)), LEAD)
+    p, j = _pair(x)
+    z = p.stft()
+    zero = z == 0
+    assert int(zero.sum()) > 1000
+    assert bool((z.angle()[zero] != 0).any())  # the sign that read pi before
+    phase = p.phase
+    assert bool((phase[zero] == 0).all())
+    assert torch.equal(phase[~zero], z.angle()[~zero])
+    want = np.asarray(j.phase)
+    assert (want[zero.numpy()] == 0).all()
+    ones = torch.ones(z.shape)
+    p.magnitude = ones
+    j.magnitude = jnp.ones(z.shape)
+    assert bool((p.stft_data.real[zero] == 1).all())
+    assert np.abs(p.stft_data.numpy() - np.asarray(j.stft_data))[zero.numpy()].max() == 0
+
+
+def test_phase_passes_no_gradient_into_a_zero_cell():
+    """``angle``'s backward at ``0 + 0j`` and the constant branch give a
+    zero, finite gradient there; elsewhere the gradient is ``angle``'s."""
+    z = torch.tensor([[[[0j, -0.0 + 0j, 1 + 1j, -2 + 0.5j]]]], dtype=torch.complex64)
+    leaf = z.clone().requires_grad_(True)
+    sig = AudioSignal(np.zeros((1, 1, 8), np.float32), SR, device="cpu")
+    sig.stft_data = leaf
+    (sig.phase * torch.arange(1.0, 5.0)).sum().backward()
+    ref = z.clone().requires_grad_(True)
+    (ref.angle() * torch.arange(1.0, 5.0)).sum().backward()
+    assert bool(torch.isfinite(torch.view_as_real(leaf.grad)).all())
+    assert torch.equal(leaf.grad[..., :2], torch.zeros(1, 1, 1, 2, dtype=torch.complex64))
+    assert torch.equal(leaf.grad[..., 2:], ref.grad[..., 2:])
+
+
 def test_drr_measure_and_decomposition_match_jax():
     ir = _ir(6, 3, 8000)
     p, j = _pair(ir)

@@ -52,10 +52,11 @@ def _make(module, name, audio_dir, **kwargs):
     return getattr(module, name)(**kwargs)
 
 
-def _signals(seed=0, batch=2):
+def _signals(seed=0, batch=2, lead=0):
     """The item signal instantiate sees, and the batch the transforms get,
-    for each package."""
+    for each package; ``lead`` samples of digital silence start each clip."""
     x = np.stack([speech_like(seed + i, 1.0)[None] for i in range(batch)])
+    x[..., :lead] = 0.0
     loud = float(AudioSignal(x[:1].copy(), SR, device="cpu").loudness()[0])
     item_p, item_j = AudioSignal(x[:1].copy(), SR, device="cpu"), JSignal(x[:1].copy(), SR)
     for item in (item_p, item_j):
@@ -120,6 +121,50 @@ def test_leaf_matches_jax_under_a_mixed_mask(name, audio_dir):
         untouched.stft()
         untouched.istft()
     assert torch.equal(got.audio_data[off], untouched.audio_data[off])
+
+
+# 20,000 samples of digital silence at the start of each 1 s clip: frames
+# whose STFT cells are exactly zero, and whose phase the noise fills read
+SILENT_LEAD = 20000
+
+
+def _applied(name, audio_dir, lead, **kwargs):
+    """One transform from the same seeds through both packages, under a
+    mixed mask, on clips led by ``lead`` samples of silence."""
+    ptf, jtf = (_make(m, name, audio_dir, prob=0.5, **kwargs) for m in (pt, jt))
+    item_p, item_j, batch_p, batch_j = _signals(lead=lead)
+    states = _mixed_states(ptf, item_p, name)
+    pkw, jkw = ptf.batch_instantiate(states, item_p), jtf.batch_instantiate(states, item_j)
+    _same_draws(pkw, jkw)
+    return ptf(batch_p.clone(), **pkw), jtf(batch_j.clone(), **jkw), batch_p, pkw
+
+
+@pytest.mark.parametrize("lead", [0, SILENT_LEAD])
+def test_room_impulse_response_with_original_phase_matches_jax(lead, audio_dir):
+    """F4: ``RoomImpulseResponse(use_original_phase=True)`` from one seed
+    through both packages, with and without a silent lead, over every
+    sample at ``apply_ir``'s pin (1e-5: the dry phase of a quiet cell is
+    ill-conditioned and the wet magnitude scales its rounding)."""
+    got, want, batch_p, pkw = _applied("RoomImpulseResponse", audio_dir, lead,
+                                       use_original_phase=True)
+    assert got.audio_data.shape == batch_p.audio_data.shape
+    assert _err(got, want) < 1e-5
+    plain = _make(pt, "RoomImpulseResponse", audio_dir, prob=0.5)(batch_p.clone(), **pkw)
+    on = int(np.flatnonzero(pkw["RoomImpulseResponse"]["mask"])[0])
+    assert float((got.audio_data[on] - plain.audio_data[on]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("name", ["TimeNoise", "FrequencyNoise"])
+def test_noise_fill_over_digital_silence_matches_jax(name, audio_dir):
+    """F5: over digital silence every exactly-zero cell reads phase 0 and is
+    filled, in both packages, whatever sign the FFT gave its zeros; at the
+    transforms' pin, over every sample."""
+    got, want, batch_p, pkw = _applied(name, audio_dir, SILENT_LEAD)
+    assert _err(got, want) < ATOL
+    on = int(np.flatnonzero(pkw[name]["mask"])[0])
+    silent = batch_p.clone().stft()[on] == 0
+    assert int(silent.sum()) > 1000  # the lead's cells, filled with noise
+    assert float(got.audio_data[on, :, : SILENT_LEAD // 2].abs().max()) > 1e-2
 
 
 def test_the_port_has_every_transform_class():
