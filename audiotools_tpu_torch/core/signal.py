@@ -476,7 +476,8 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
              padding_type: str = None, method: str = "fft", mesh=None,
              axis_name: str = "sp"):
         """Compute the STFT ``(B, C, F, T)`` (``ops.fft.stft``, ``method``
-        ``"fft"`` or ``"matmul"``), cache it in ``stft_data`` and return it.
+        ``"fft"``, ``"matmul"`` or ``"matmul_bf16"``), cache it in
+        ``stft_data`` and return it.
 
         ``mesh``: a ``DeviceMesh`` routes audio time-sharded over
         ``mesh[axis_name]`` through the sequence-parallel STFT

@@ -4,6 +4,10 @@ and magnitude-weighted phase.
 Counterpart of ``audiotools_tpu/metrics/spectral.py``. The STFT and mel
 losses analyse with ``stft_method="matmul"`` by default, as the JAX
 package does: window-fused DFT matrices in full fp32 (``ops.fft.stft``).
+``stft_method`` takes every method of ``ops.fft.stft``: ``"fft"``, or
+``"matmul_bf16"`` (frames and matrices rounded to bf16, summed in fp32;
+within 2^-8 of the fp32 spectrum's scale) for loss stacks that tolerate
+bf16 magnitudes.
 """
 from typing import List
 

@@ -13,7 +13,10 @@ feature maps, the final logit map last, in fp32.
 ``dtype`` (e.g. ``torch.bfloat16``) is flax's compute dtype: the weights are
 normalized in fp32, then every conv casts its input, weight and bias to
 ``dtype`` at use; the STFT runs in fp32 and its image is cast before the
-first conv.
+first conv. ``stft_method`` is the MRD's analysis, any method of
+``ops.fft.stft``: ``"matmul"`` (the default, fp32), ``"fft"``, or
+``"matmul_bf16"`` (frames and DFT matrices rounded to bf16, products
+summed in fp32).
 
 Under model parallelism (``models.train.shard_params``) a conv's weight may
 be sharded on its output channels. The weight norm of a local shard is

@@ -4,12 +4,13 @@ Counterpart of ``audiotools_tpu/ops/fft.py``. ``method="fft"`` (the
 default, as in the JAX package) runs ``torch.fft`` on the windowed frames
 in fp32. ``"matmul"`` evaluates the DFTs as matmuls against window-fused
 real-DFT matrices designed on the host in float64 (the same numpy designs
-as the JAX package), in full fp32. The synthesis also takes
-``"matmul_bf16"``: the spectrum and the matrices are rounded to bf16 and
-the product is summed in fp32, as a bf16 matrix unit computes it; and
-``"matmul_bf16_fused"``, the same numerics through kernel E
+as the JAX package), in full fp32. ``"matmul_bf16"`` rounds the operands
+(frames or spectrum, and the matrices) to bf16 and sums the product in
+fp32, as a bf16 matrix unit computes it, in both directions. The synthesis
+also takes ``"matmul_bf16_fused"``, the same numerics through kernel E
 (``hopper_kernels.istft_synthesis_fused``), which never builds the frame
-tensor.
+tensor, and ``"matmul_bf16_fused_interpret"``, the JAX package's name for
+the kernel off its hardware, which runs E's plain version.
 """
 import functools
 import math
@@ -34,6 +35,9 @@ __all__ = [
     "mfcc",
     "log_magnitude",
 ]
+
+
+_STFT_METHODS = ("fft", "matmul", "matmul_bf16")
 
 
 def default_win_length(sample_rate: int) -> int:
@@ -172,9 +176,12 @@ def stft(audio: torch.Tensor, window_length: int, hop_length: int,
     framing). The result is a transposed view of a time-major ``(...,
     n_frames, n_freq)`` tensor, the layout the phase vocoder reads.
     ``method``: ``"fft"`` (``rfft`` of the windowed frames) or ``"matmul"``
-    (window-fused DFT matrices), both fp32.
+    (window-fused DFT matrices), both fp32; ``"matmul_bf16"``, the frames
+    and the matrices rounded to bf16 and the products summed in fp32 (within
+    2^-8 of the fp32 spectrum's scale; for loss stacks that tolerate bf16
+    magnitudes), differentiable through the roundings.
     """
-    if method not in ("fft", "matmul"):
+    if method not in _STFT_METHODS:
         raise ValueError(f"Unknown stft method: {method!r}")
     length = audio.shape[-1]
     right_pad, pad = compute_stft_padding(length, window_length, hop_length, match_stride)
@@ -186,17 +193,25 @@ def stft(audio: torch.Tensor, window_length: int, hop_length: int,
     x = _pad(x, cpad, cpad, "reflect")
 
     frames = _frame(x, window_length, hop_length)  # (B, n_frames, n_fft)
-    if method == "fft":
-        (window,) = _on_device(_window_design, (window_type, window_length), x.device)
-        spec = torch.fft.rfft(frames * window, dim=-1)  # (B, n_frames, n_freq)
-    else:
-        C, S = _on_device(_dft_matrices, (window_type, window_length), x.device)
-        with strict_fp32():
-            spec = torch.complex(frames @ C, frames @ S)  # (B, n_frames, n_freq)
-    spec = spec.transpose(-1, -2)
+    spec = _analysis(frames, window_type, method).transpose(-1, -2)
     if match_stride:
         spec = spec[..., 2:-2]
     return spec.reshape(batch_shape + spec.shape[1:])
+
+
+def _analysis(frames: torch.Tensor, window_type: str, method: str) -> torch.Tensor:
+    """``rfft(frames * window)`` of ``(..., n_frames, n_fft)`` frames by
+    ``method`` (see :func:`stft`): complex64 ``(..., n_frames, n_freq)``.
+    The single-device and the sequence-parallel STFT both call it."""
+    window_length = frames.shape[-1]
+    if method == "fft":
+        (window,) = _on_device(_window_design, (window_type, window_length), frames.device)
+        return torch.fft.rfft(frames * window, dim=-1)
+    C, S = _on_device(_dft_matrices, (window_type, window_length), frames.device)
+    if method == "matmul_bf16":
+        frames, C, S = _bf16(frames), _bf16(C), _bf16(S)
+    with strict_fp32():
+        return torch.complex(frames @ C, frames @ S)
 
 
 def _window_design(window_type: str, window_length: int):
@@ -238,9 +253,11 @@ def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
     fp32; ``"matmul_bf16"`` rounds the spectrum and the iDFT matrices to
     bf16 and accumulates in fp32; ``"matmul_bf16_fused"`` computes the same
     in one pass of kernel E when the hop divides the window into at most 8
-    parts, and is ``"matmul_bf16"`` otherwise (the JAX package's rule).
+    parts, and is ``"matmul_bf16"`` otherwise (the JAX package's rule);
+    ``"matmul_bf16_fused_interpret"`` follows the same rule with E's plain
+    version in the kernel's place, on the spectrum's own device.
     """
-    if method not in ("fft", "matmul", "matmul_bf16", "matmul_bf16_fused"):
+    if method not in _STFT_METHODS + ("matmul_bf16_fused", "matmul_bf16_fused_interpret"):
         raise ValueError(f"Unknown istft method: {method!r}")
     if length is None and original_length is None:
         raise ValueError("Provide either `length` or `original_length`.")
@@ -261,11 +278,14 @@ def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
         _inverse_envelope, (window_type, window_length, hop_length, nt + 2 * edge), S.device
     )
     trim = (window_length, length, match_stride, pad, right_pad, batch_shape)
-    if method == "matmul_bf16_fused":
+    if method.startswith("matmul_bf16_fused"):
         if window_length % hop_length == 0 and window_length // hop_length <= 8:
             (w,) = _on_device(_synthesis_design, (window_type, window_length, hop_length),
                               S.device)
-            y = hopper_kernels.istft_synthesis_fused(S, w, hop_length, inv_env, edge)
+            synthesis = (hopper_kernels.istft_synthesis_fused_plain
+                         if method == "matmul_bf16_fused_interpret"
+                         else hopper_kernels.istft_synthesis_fused)
+            y = synthesis(S, w, hop_length, inv_env, edge)
             return _istft_trim(y, *trim)
         method = "matmul_bf16"
     if edge:

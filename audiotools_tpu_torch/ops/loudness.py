@@ -41,7 +41,7 @@ MIN_LOUDNESS = -70.0
 
 _METER_DEFAULTS = {"use_fir": False, "conv_method": "fft", "zeros": 512}
 
-CONV_METHODS = ("fft", "fft_os", "pallas")
+CONV_METHODS = ("fft", "fft_os", "pallas", "pallas_interpret")
 
 
 def set_fast_meter(enable: bool = True, zeros: int = 512):
@@ -188,22 +188,21 @@ def apply_k_weighting(audio: torch.Tensor, rate: int, filter_class: str = "K-wei
     ``use_fir=True`` convolves with the ``zeros``-tap composed FIR:
     ``conv_method="pallas"`` through kernel C when the kernel has at most
     ``hopper_kernels.MAX_TAPS`` taps (its plain version for CPU tensors),
-    otherwise, and for ``"fft"``, one FFT convolution; ``"fft_os"`` in
-    8192-point overlap-save blocks.
+    ``"pallas_interpret"`` (the JAX package's name for the kernel off its
+    hardware) through C's plain version under the same rule, otherwise, and
+    for ``"fft"``, one FFT convolution; ``"fft_os"`` in 8192-point
+    overlap-save blocks.
     """
     if conv_method not in CONV_METHODS:
-        if conv_method == "pallas_interpret":
-            raise ValueError(
-                "conv_method 'pallas_interpret' is the JAX package's TPU interpreter "
-                "mode; this package runs kernel C with conv_method='pallas'"
-            )
         raise ValueError(f"conv_method must be one of {CONV_METHODS}, got {conv_method!r}")
     if not use_fir:
         stages = [(b, a, g) for (b, a), g in design_filters(rate, filter_class)]
         return iir_cascade_blocked(audio, stages)
     kernel = _composed_fir_on(rate, filter_class, zeros, audio.device)
-    if conv_method == "pallas" and kernel.shape[0] <= hopper_kernels.MAX_TAPS:
-        return hopper_kernels.fir_causal(audio, kernel)
+    if conv_method.startswith("pallas") and kernel.shape[0] <= hopper_kernels.MAX_TAPS:
+        fir = (hopper_kernels.fir_causal_plain if conv_method == "pallas_interpret"
+               else hopper_kernels.fir_causal)
+        return fir(audio, kernel)
     return causal_fft_conv1d(audio, kernel, block_size=8192 if conv_method == "fft_os" else None)
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``audiotools_tpu/ops/stretch.py``: STFT -> phase vocoder
 -> iSTFT, and a polyphase resample for the pitch shift. The vocoder has the
-JAX package's three evaluations: ``"angle"`` (the default), ``"phasor"``
-and ``"phasor_fused"`` (kernel B, ``hopper_kernels.phase_vocoder_fused``,
-differentiable through ``_FusedPhaseVocoder``).
+JAX package's four formulations (``_FORMULATIONS``): ``"angle"`` (the
+default), ``"phasor"``, ``"phasor_fused"`` (kernel B,
+``hopper_kernels.phase_vocoder_fused``, differentiable through
+``_FusedPhaseVocoder``) and ``"phasor_fused_interpret"`` (the same with
+B's plain version in the kernel's place).
 """
 import math
 from fractions import Fraction
@@ -18,6 +20,8 @@ from . import hopper_kernels
 from . import resample as _resample
 
 __all__ = ["phase_vocoder", "time_stretch", "pitch_shift"]
+
+_FORMULATIONS = ("angle", "phasor", "phasor_fused", "phasor_fused_interpret")
 
 
 def _pv_indices(T: int, rate: float):
@@ -103,12 +107,13 @@ class _FusedPhaseVocoder(torch.autograd.Function):
     conj P)`` and ``w = mag g conj P``; since every phasor is unit, the
     reverse rotation recurrence is one reversed cumsum ``V_s = sum_{t >= s}
     w_t``, giving ``ubar_s = u_s V_{s+1}`` and ``cbar = c V_0``; these go
-    through the vector-Jacobian product of ``_pv_phasor_prep``."""
+    through the vector-Jacobian product of ``_pv_phasor_prep``. ``vocoder``
+    is kernel B's wrapper, or its plain version for
+    ``"phasor_fused_interpret"``."""
 
     @staticmethod
-    def forward(ctx, stft_data, i0, i1, frac):
-        out, track = hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac,
-                                                        with_phasor=True)
+    def forward(ctx, stft_data, i0, i1, frac, vocoder):
+        out, track = vocoder(stft_data, i0, i1, frac, with_phasor=True)
         ctx.save_for_backward(stft_data, track)
         ctx.tables = (i0, i1, frac)
         return out
@@ -132,7 +137,7 @@ class _FusedPhaseVocoder(torch.autograd.Function):
         cbar_r = cr * vr[..., 0] - ci * vi[..., 0]
         cbar_i = cr * vi[..., 0] + ci * vr[..., 0]
         (zbar,) = torch.autograd.grad(prep, z, (mbar, ubar_r, ubar_i, cbar_r, cbar_i))
-        return zbar, None, None, None
+        return zbar, None, None, None, None
 
 
 def _phase_vocoder_angle(stft_data, i0, i1, frac, hop_length, window_length):
@@ -173,22 +178,26 @@ def phase_vocoder(stft_data, rate: float, hop_length: int, window_length: int,
     ``"phasor_fused"`` runs the phasor recurrence in kernel B, and when
     the spectrum requires grad it is differentiable, the backward a
     reversed cumsum over kernel B's phasor track (``_FusedPhaseVocoder``,
-    gradient parity with ``"phasor"`` at 4.4e-5). The
-    formulations agree except after a transient zero frame, where the
-    phasor forms carry an identity rotation and ``"angle"`` a phase of 0.
+    gradient parity with ``"phasor"`` at 4.4e-5); ``"phasor_fused_interpret"``
+    (the JAX package's name for the kernel off its hardware) is the same
+    with B's plain version in the kernel's place, on the spectrum's own
+    device. The formulations agree except after a transient zero frame,
+    where the phasor forms carry an identity rotation and ``"angle"`` a
+    phase of 0.
     """
     i0, i1, frac = _pv_indices(stft_data.shape[-1], rate)
     if formulation == "angle":
         return _phase_vocoder_angle(stft_data, i0, i1, frac, hop_length, window_length)
     if formulation == "phasor":
         return _phase_vocoder_phasor(stft_data, i0, i1, frac)
-    if formulation == "phasor_fused":
+    if formulation in ("phasor_fused", "phasor_fused_interpret"):
+        vocoder = (hopper_kernels.phase_vocoder_fused_plain
+                   if formulation == "phasor_fused_interpret"
+                   else hopper_kernels.phase_vocoder_fused)
         if torch.is_grad_enabled() and stft_data.requires_grad:
-            return _FusedPhaseVocoder.apply(stft_data, i0, i1, frac)
-        return hopper_kernels.phase_vocoder_fused(stft_data, i0, i1, frac)
-    raise ValueError(
-        f"formulation must be 'angle', 'phasor', or 'phasor_fused', got {formulation!r}"
-    )
+            return _FusedPhaseVocoder.apply(stft_data, i0, i1, frac, vocoder)
+        return vocoder(stft_data, i0, i1, frac)
+    raise ValueError(f"formulation must be one of {_FORMULATIONS}, got {formulation!r}")
 
 
 def time_stretch(audio, factor: float, window_length: int = 2048, hop_length: int = None,

@@ -312,12 +312,8 @@ def _stft_geometry(T, n_dev, window_length, hop_length):
     return cpad, T_shard, nf_local, n_valid, right
 
 
-def _bf16(*tensors):
-    return tuple(t.to(torch.bfloat16).to(torch.float32) for t in tensors)
-
-
 def _check_method(method: str):
-    if method not in ("fft", "matmul", "matmul_bf16"):
+    if method not in _fft._STFT_METHODS:
         raise ValueError(f"method must be 'fft', 'matmul' or 'matmul_bf16', got {method!r}")
 
 
@@ -354,16 +350,7 @@ def sharded_stft(x: DTensor, window_length: int, hop_length: int, mesh,
     frames = seg.unfold(-1, window_length, hop_length)  # (B, nf_local, win)
     frames = frames.masked_fill(
         ~_frame_mask(ax, nf_local, n_valid, b.device)[:, None], 0.0)
-    if method == "fft":
-        (window,) = _fft._on_device(_fft._window_design, (window_type, window_length), b.device)
-        spec = torch.fft.rfft(frames * window, dim=-1)
-    else:
-        C, S = _fft._on_device(_fft._dft_matrices, (window_type, window_length), b.device)
-        if method == "matmul_bf16":
-            frames, C, S = _bf16(frames, C, S)
-        with strict_fp32():
-            spec = torch.complex(frames @ C, frames @ S)
-    spec = spec.transpose(-1, -2)  # (B, n_freq, nf_local)
+    spec = _fft._analysis(frames, window_type, method).transpose(-1, -2)  # (B, n_freq, nf_local)
     return _wrap(spec.reshape(block.shape[:-1] + spec.shape[1:]), mesh, axis_name), n_valid
 
 
@@ -407,7 +394,7 @@ def sharded_istft(spec: DTensor, window_length: int, hop_length: int, mesh,
         Ci, Si = _fft._on_device(_fft._idft_matrices, (window_type, window_length), S.device)
         re, im = S.real, S.imag
         if method == "matmul_bf16":
-            re, im, Ci, Si = _bf16(re, im, Ci, Si)
+            re, im, Ci, Si = map(_fft._bf16, (re, im, Ci, Si))
         with strict_fp32():
             frames = re @ Ci + im @ Si
     mask = _frame_mask(ax, nf_local, n_valid, S.device).to(frames.dtype)[:, None]

@@ -164,7 +164,23 @@ runs, on card 0:
    (transforms, pitch shift, mel, loudness) and the chain's ``summarize``;
    the same kernel timers at the kernel table's other rows (A and B at the
    multitrack shapes, B with its phasor track); every line with the card's
-   name and power limit.
+   name and power limit;
+19. the single-pass bf16 analysis (``stft(method="matmul_bf16")``): the
+   adversarial step of phase 8 with ``Discriminator(stft_method=
+   "matmul_bf16")`` beside the fp32 one (one pair of seeded models each,
+   ``BF16_TRAIN_TURNS`` alternating turns): median ms/step, clips/s, peak
+   over the resident models, each step's profiled idle share, and the
+   ratios of bf16 to fp32; one bf16 step on the card
+   and on the CPU at batch 2 in strict fp32 (``TRAIN_TOL``); the analysis
+   alone at the main path's shape (64 x 220,500, 2048 / 512) timed in
+   turns with ``"matmul"``, card against CPU and against the fp32 spectrum;
+   ``MelSpectrogramLoss`` + ``MultiScaleSTFTLoss`` with the bf16 analysis
+   on the training batch, value and gradient norm card against CPU; and
+   the JAX package's interpreter-mode names (the meter's
+   ``"pallas_interpret"``, ``"phasor_fused_interpret"``,
+   ``"matmul_bf16_fused_interpret"``) on the card, bit for bit against
+   their kernels' plain versions, with no launch. This path runs none of
+   the five kernels.
 
 Every kernel is also held against its plain version at ragged shapes of
 its tiling (B and D bit for bit), and timed beside its bound (the larger
@@ -1581,9 +1597,10 @@ def _adamw(module):
                              weight_decay=1e-4)
 
 
-def _training_step(label, dev, seed=0):
+def _training_step(label, dev, seed=0, stft_method="matmul"):
     """Fresh seeded models on ``dev``, their optimizers, and the step of
-    ``label`` ("reconstruction" or "adversarial")."""
+    ``label`` ("reconstruction" or "adversarial"); ``stft_method`` is the
+    MRD's analysis."""
     from audiotools_tpu_torch.models import DAC, Discriminator
     from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
     from audiotools_tpu_torch.models.train import make_train_step
@@ -1591,7 +1608,7 @@ def _training_step(label, dev, seed=0):
     gen = DAC(seed=seed).to(dev)
     if label == "reconstruction":
         return (gen,), make_train_step(gen, _adamw(gen), SR)
-    disc = Discriminator(seed=seed + 1).to(dev)
+    disc = Discriminator(seed=seed + 1, stft_method=stft_method).to(dev)
     return (gen, disc), make_adversarial_train_step(gen, disc, _adamw(gen), _adamw(disc), SR)
 
 
@@ -1695,17 +1712,19 @@ def _grad_norm(model):
                                 for p in model.parameters() if p.grad is not None)))
 
 
-def phase_training_card_vs_cpu(audio, dev):
+def phase_training_card_vs_cpu(audio, dev, labels=("reconstruction", "adversarial"),
+                               stft_method="matmul"):
     """One step of each training path at batch TRAIN_CHECK_BATCH, on the card
-    and on the CPU, from the same seeded weights, in full fp32 on both."""
+    and on the CPU, from the same seeded weights, in full fp32 on both, held
+    to TRAIN_TOL; ``stft_method`` is the MRD's analysis."""
     from audiotools_tpu_torch.ops._fp32 import strict_fp32
 
     a_card = audio[:TRAIN_CHECK_BATCH].detach()
     a_cpu = a_card.cpu()
     with strict_fp32():
-        for label in ("reconstruction", "adversarial"):
-            card_models, card_step = _training_step(label, dev)
-            cpu_models, cpu_step = _training_step(label, "cpu")
+        for label in labels:
+            card_models, card_step = _training_step(label, dev, stft_method=stft_method)
+            cpu_models, cpu_step = _training_step(label, "cpu", stft_method=stft_method)
             err = {}
             if label == "reconstruction":
                 gen_card, gen_cpu = card_models[0], cpu_models[0]
@@ -1726,17 +1745,203 @@ def phase_training_card_vs_cpu(audio, dev):
             err["grad_norm_rel"] = abs(_grad_norm(card_models[0]) - _grad_norm(cpu_models[0])) / (
                 _grad_norm(cpu_models[0]))
             worst, share = _max_update_gap(card_models, cpu_models)
-            print(f"[train card vs cpu] {label}: " + ", ".join(
+            tag = label if stft_method == "matmul" else f"{label}, MRD stft_method={stft_method}"
+            print(f"[train card vs cpu] {tag}: " + ", ".join(
                 f"{k} {v:.3e} (tol {TRAIN_TOL[k]:g})" for k, v in err.items())
                 + f" | after the step: largest parameter gap {worst / LR:.3f} LR (tol 2), share "
                 f"over {TRAIN_TOL['update_lr']:g} LR {share:.2e} (tol {TRAIN_TOL['update_share']:g})"
                 + f" | loss card {m_card['loss']:.6f}, cpu {m_cpu['loss']:.6f}")
             for k, v in err.items():
-                expect(v <= TRAIN_TOL[k], f"training card vs CPU ({label}) {k} {v:.3e}")
+                expect(v <= TRAIN_TOL[k], f"training card vs CPU ({tag}) {k} {v:.3e}")
             expect(worst <= 2.01 * LR and share <= TRAIN_TOL["update_share"],
-                   f"training card vs CPU ({label}): parameters after the step differ "
+                   f"training card vs CPU ({tag}): parameters after the step differ "
                    f"({worst / LR:.3f} LR, share {share:.2e})")
             del card_models, cpu_models, card_step, cpu_step
+
+
+# ---------------------------------------------------------------------------
+# the single-pass bf16 analysis and the interpreter-mode names
+# ---------------------------------------------------------------------------
+
+# the bf16 analysis (stft(method="matmul_bf16")): card against CPU on the
+# same bf16 operands, fp32 sums in other orders (1e-5 of the spectrum's
+# scale); against the card's fp32 spectrum, more than fp32 rounding and less
+# than the two bf16 roundings of frames and matrices (tests/test_torch_parallel.py)
+BF16_STFT_TOL = {"card_vs_cpu_rel": 1e-5, "vs_fp32_min": 1e-6, "vs_fp32_max": 2.0 ** -8}
+BF16_STFT_SHAPE = (2048, 512)  # the main path's window and hop
+BF16_STFT_ITERS = 10
+BF16_TRAIN_TURNS = 4  # each analysis's timed turns of the adversarial step, alternating
+
+
+def phase_bf16_analysis(dev, card, chain_audio, train_audio, train_results):
+    """The single-pass bf16 analysis on the card: the adversarial step with
+    the MRD's STFT in bf16 at full width beside the fp32 one (in alternating
+    turns), one step card against CPU, the analysis alone at the
+    main path's shape, the two spectral losses, and the JAX package's
+    interpreter-mode names. Launch counts are set to 0 just before each
+    path and read just after."""
+    from audiotools_tpu_torch import AudioSignal
+    from audiotools_tpu_torch.metrics.spectral import MelSpectrogramLoss, MultiScaleSTFTLoss
+    from audiotools_tpu_torch.ops import fft as PF
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops import stretch as PS
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    launches, results = {}, {}
+    # 1. the adversarial step with each analysis, on one pair of seeded models
+    # each, in alternating turns (the step's time drifts within a call)
+    methods = ("matmul", "matmul_bf16")
+    pairs = {m: _training_step("adversarial", dev, stft_method=m) for m in methods}
+    for m in methods:  # untimed: the optimizers' state, cuDNN's first choices
+        pairs[m][1](train_audio)
+    times, peaks = {m: [] for m in methods}, {m: 0 for m in methods}
+    HK.reset_launch_counts()
+    for turn in range(BF16_TRAIN_TURNS):
+        for m in methods if turn % 2 == 0 else methods[::-1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(TRAIN_STEPS - 1):
+                metrics = pairs[m][1](train_audio)
+            end.record()
+            end.synchronize()
+            times[m].append(start.elapsed_time(end) / (TRAIN_STEPS - 1))
+            peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated() - resident)
+            expect(all(np.isfinite(float(v)) for v in metrics.values()),
+                   f"bf16 analysis step ({m}): non-finite metrics")
+    launches["adversarial"] = dict(HK.LAUNCHES)
+    ms = {m: float(np.median(times[m])) for m in methods}
+    idle = {}
+    for m in methods:
+        _, busy, n_kernels, _ = profile_step(pairs[m][1], train_audio)
+        idle[m] = f"{1 - busy / ms[m]:.1%} ({n_kernels} kernels)" if busy > 0 else "not measured"
+    del pairs, metrics
+    for m in methods:
+        print(f"[bf16 train] adversarial step, MRD stft_method={m}, {TRAIN_BATCH} x "
+              f"{TRAIN_SAMPLES}: median {ms[m]:.3f} ms/step of {BF16_TRAIN_TURNS} turns of "
+              f"{TRAIN_STEPS - 1} steps ({', '.join(f'{t:.3f}' for t in times[m])}; CUDA events) "
+              f"| {TRAIN_BATCH / ms[m] * 1000:.2f} clips/s | peak {peaks[m] / 2**30:.3f} GiB over "
+              f"the resident models | device idle {idle[m]} of the median | {card}")
+    print(f"[bf16 train] bf16 / fp32 analysis: step {ms['matmul_bf16'] / ms['matmul']:.4f}, peak "
+          f"{peaks['matmul_bf16'] / peaks['matmul']:.4f} | phase 8's fp32 step "
+          f"{train_results['ms']:.3f} ms, peak {train_results['peak'] / 2**30:.3f} GiB | kernel "
+          f"launches: {launches['adversarial']}")
+    results["adversarial"] = dict(ms=ms, times=times, peaks=peaks)
+
+    # 2. one step card against CPU, held to TRAIN_TOL as the fp32 paths are
+    phase_training_card_vs_cpu(train_audio, dev, labels=("adversarial",),
+                               stft_method="matmul_bf16")
+
+    # 3. the analysis alone at the main path's shape, card against CPU and fp32
+    win, hop = BF16_STFT_SHAPE
+    x = chain_audio.reshape(chain_audio.shape[0], -1)
+    HK.reset_launch_counts()
+    spec = PF.stft(x, win, hop, method="matmul_bf16")
+    spec32 = PF.stft(x, win, hop, method="matmul")
+    torch.cuda.synchronize()
+    launches["stft"] = dict(HK.LAUNCHES)
+    scale = float(spec32.abs().max())
+    vs_fp32 = float((spec - spec32).abs().max()) / scale
+    want = PF.stft(x[:N_CHECK].cpu(), win, hop, method="matmul_bf16")
+    vs_cpu = float((spec[:N_CHECK].cpu() - want).abs().max() / want.abs().max())
+    times = {}
+    for method in ("matmul", "matmul_bf16", "matmul_bf16", "matmul"):
+        times.setdefault(method, []).append(
+            time_ms(lambda: PF.stft(x, win, hop, method=method), BF16_STFT_ITERS))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"[bf16 stft] {tuple(x.shape)}, n_fft {win}, hop {hop}: matmul_bf16 "
+          f"{ms['matmul_bf16']:.4f} ms, matmul {ms['matmul']:.4f} ms (ratio "
+          f"{ms['matmul_bf16'] / ms['matmul']:.4f}; CUDA events, {BF16_STFT_ITERS} calls a turn, "
+          f"turns {[round(t, 4) for t in times['matmul']]} / "
+          f"{[round(t, 4) for t in times['matmul_bf16']]}) | card vs CPU {vs_cpu:.3e} of scale "
+          f"(tol {BF16_STFT_TOL['card_vs_cpu_rel']:g}) | vs the card's fp32 spectrum "
+          f"{vs_fp32:.3e} of scale (within ({BF16_STFT_TOL['vs_fp32_min']:g}, "
+          f"{BF16_STFT_TOL['vs_fp32_max']:.3e})) | kernel launches: {launches['stft']} | {card}")
+    expect(tuple(spec.shape) == (x.shape[0], win // 2 + 1, 1 + x.shape[-1] // hop)
+           and spec.dtype == torch.complex64, f"bf16 stft: {tuple(spec.shape)} {spec.dtype}")
+    expect(bool(torch.isfinite(torch.view_as_real(spec)).all()), "bf16 stft: non-finite")
+    expect(vs_cpu < BF16_STFT_TOL["card_vs_cpu_rel"], f"bf16 stft card vs CPU {vs_cpu:.3e}")
+    expect(BF16_STFT_TOL["vs_fp32_min"] < vs_fp32 < BF16_STFT_TOL["vs_fp32_max"],
+           f"bf16 stft vs fp32 {vs_fp32:.3e}")
+    results["stft"] = dict(ms=ms, vs_cpu=vs_cpu, vs_fp32=vs_fp32)
+    del spec, spec32, want
+
+    # 4. the spectral losses on the training batch: value and gradient norm,
+    # card against CPU on the same operands, held to TRAIN_TOL's bounds
+    def loss_and_grad(audio, method):
+        est = audio.detach().clone().requires_grad_(True)
+        ref = audio.detach().flip(0)
+        with strict_fp32():
+            loss = (MelSpectrogramLoss(stft_method=method)(AudioSignal(est, SR),
+                                                           AudioSignal(ref, SR))
+                    + MultiScaleSTFTLoss(stft_method=method)(AudioSignal(est, SR),
+                                                             AudioSignal(ref, SR)))
+            loss.backward()
+        return float(loss.detach()), est.grad
+
+    HK.reset_launch_counts()
+    card_loss, card_grad = loss_and_grad(train_audio, "matmul_bf16")
+    launches["losses"] = dict(HK.LAUNCHES)
+    cpu_loss, cpu_grad = loss_and_grad(train_audio.cpu(), "matmul_bf16")
+    fp32_loss, fp32_grad = loss_and_grad(train_audio, "matmul")
+    err = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+           "grad_norm_rel": abs(float(card_grad.norm()) - float(cpu_grad.norm()))
+           / float(cpu_grad.norm())}
+    cosine = float((card_grad * fp32_grad).sum() / (card_grad.norm() * fp32_grad.norm()))
+    print(f"[bf16 losses] MelSpectrogramLoss + MultiScaleSTFTLoss (stft_method=matmul_bf16) on "
+          f"{tuple(train_audio.shape)}: loss card {card_loss:.6f}, cpu {cpu_loss:.6f}; gradient "
+          f"norm card {float(card_grad.norm()):.6g}, cpu {float(cpu_grad.norm()):.6g} | "
+          + ", ".join(f"{k} {v:.3e} (tol {TRAIN_TOL[k]:g})" for k, v in err.items())
+          + f" | beside the fp32 losses on the card: loss {fp32_loss:.6f}, gradient norm "
+          f"{float(fp32_grad.norm()):.6g}, cosine {cosine:.4f} | kernel launches: "
+          f"{launches['losses']}")
+    expect(np.isfinite(card_loss) and bool(torch.isfinite(card_grad).all()),
+           "bf16 losses: non-finite value or gradient")
+    for k, v in err.items():
+        expect(v <= TRAIN_TOL[k], f"bf16 losses card vs CPU {k} {v:.3e}")
+    results["losses"] = dict(err, cosine=cosine)
+
+    # 5. the interpreter-mode names: each kernel's plain version, bit for bit
+    audio = chain_audio[:, 0]
+    taps = PL._composed_fir_on(SR, "K-weighting", 512, audio.device)
+    spec = PF.stft(audio, win, hop, method="matmul")
+    n_frames = spec.shape[-1]
+    i0, i1, frac = PS._pv_indices(n_frames, 2.0 ** (-2.0 / 12.0))
+    (w,) = PF._on_device(PF._synthesis_design, ("hann", win, hop), audio.device)
+    (inv_env,) = PF._on_device(PF._inverse_envelope, ("hann", win, hop, n_frames), audio.device)
+    length = audio.shape[-1]
+    HK.reset_launch_counts()
+    names = {
+        "pallas_interpret (meter)": (
+            lambda: PL.apply_k_weighting(audio, SR, use_fir=True, conv_method="pallas_interpret"),
+            lambda: HK.fir_causal_plain(audio, taps)),
+        "phasor_fused_interpret": (
+            lambda: PS.phase_vocoder(spec, 2.0 ** (-2.0 / 12.0), hop, win,
+                                     formulation="phasor_fused_interpret"),
+            lambda: HK.phase_vocoder_fused_plain(spec, i0, i1, frac)),
+        "matmul_bf16_fused_interpret": (
+            lambda: PF.istft(spec, win, hop, length=length, method="matmul_bf16_fused_interpret"),
+            lambda: HK.istft_synthesis_fused_plain(spec.transpose(-1, -2), w, hop, inv_env)[
+                :, win // 2: win // 2 + length]),
+    }
+    interpret = {}
+    for name, (route, plain) in names.items():
+        got, want = route(), plain()
+        expect(got.device.type == "cuda", f"{name} computed on {got.device}")
+        interpret[name] = bool(torch.equal(got, want))
+    torch.cuda.synchronize()
+    launches["interpret"] = dict(HK.LAUNCHES)
+    print(f"[bf16 interpret] on the card, {tuple(audio.shape)} (n_fft {win}, hop {hop}), each "
+          f"name against its kernel's plain version called directly: "
+          + ", ".join(f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in interpret.items())
+          + f" | kernel launches: {launches['interpret']}")
+    expect(all(interpret.values()), f"interpreter-mode names off their plain versions: {interpret}")
+    expect(sum(launches["interpret"].values()) == 0,
+           f"an interpreter-mode name launched a kernel: {launches['interpret']}")
+    return launches, results
 
 
 # ---------------------------------------------------------------------------
@@ -3160,6 +3365,9 @@ def main():
         train_audio, train_launches, train_results = phase_codec_training(root, dev, card)
         launches.update(train_launches)
         phase_training_card_vs_cpu(train_audio, dev)
+        bf16_launches, _ = phase_bf16_analysis(dev, card, batch["signal"].audio_data,
+                                               train_audio, train_results["adversarial"])
+        launches.update({f"bf16 {k}": v for k, v in bf16_launches.items()})
         launches["serving"], _ = phase_serving(root, dev, card)
         launches["training loop"], _ = phase_training_loop(root, dev, card)
         launches["host io"], _ = phase_host_io(root, dev, card)

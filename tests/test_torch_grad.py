@@ -87,6 +87,23 @@ def test_fused_vocoder_gradient_matches_jax_and_phasor(rate):
         assert np.abs(g - p).max() / scale < PV_GRAD_RTOL
 
 
+@pytest.mark.parametrize("rate", [1.3, 0.77, 2.0 ** (-2.0 / 12.0)])
+def test_interpret_vocoder_gradient_matches_jax_and_phasor(rate):
+    """``"phasor_fused_interpret"`` differentiates as ``"phasor_fused"``
+    does, with the backward reading B's plain version's phasor track:
+    against the JAX package's interpret-mode custom VJP and against
+    autograd of ``"phasor"``, at 4.4e-5 of the largest gradient."""
+    re, im = _spectrum(5, (2, 17, 25))
+    got = _port_pv_grad(re, im, rate, "phasor_fused_interpret")
+    phasor = _port_pv_grad(re, im, rate, "phasor")
+    want = _jax_pv_grad(re, im, rate, "phasor_fused_interpret")
+    scale = max(np.abs(w).max() for w in want)
+    for g, p, w in zip(got, phasor, want):
+        assert np.all(np.isfinite(g))
+        assert np.abs(g - w).max() / scale < PV_GRAD_RTOL
+        assert np.abs(g - p).max() / scale < PV_GRAD_RTOL
+
+
 def test_fused_vocoder_keeps_the_trackless_forward_without_grad():
     """Without grad the path's forward is kernel B's launch without the
     phasor track, as before; with grad the output carries the custom

@@ -336,3 +336,143 @@ def test_no_module_refuses_work_the_jax_package_does(tmp_path):
     probe.write_text("def f(x):\n    if x:\n        raise NotImplementedError('no')\n"
                      "    raise NotImplementedError\n    raise ValueError\n")
     assert sorted(_refusals(probe)) == [3, 4]
+
+
+# -- every option value the JAX package takes --------------------------------
+
+
+def _strings(node, constants):
+    """The strings of a literal, a tuple, list or set of them, a sum of
+    such tuples, or a module-level name bound to one."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return {node.value}
+    if isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+        return set().union(*(_strings(e, constants) for e in node.elts))
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Add):
+        return _strings(node.left, constants) | _strings(node.right, constants)
+    if isinstance(node, ast.Name):
+        return set(constants.get(node.id, ()))
+    return set()
+
+
+def _only_raises(body):
+    return (isinstance(body[-1], ast.Raise)
+            and all(isinstance(s, (ast.Raise, ast.Expr, ast.Assign)) for s in body))
+
+
+def _option_values(fn, constants):
+    """``{(parameter, value): accepted}`` for every string that ``fn``
+    compares one of its parameters with (``==``, ``!=``, ``in``, ``not
+    in``). A value is refused where an ``==``/``in`` test of it guards a
+    block that only raises."""
+    params = {a.arg for a in fn.args.posonlyargs + fn.args.args + fn.args.kwonlyargs}
+    refusals = {id(node.test) for node in ast.walk(fn)
+                if isinstance(node, ast.If) and _only_raises(node.body)}
+    out = {}
+    for node in ast.walk(fn):
+        if not (isinstance(node, ast.Compare) and len(node.ops) == 1
+                and isinstance(node.ops[0], (ast.Eq, ast.NotEq, ast.In, ast.NotIn))):
+            continue
+        left, right = node.left, node.comparators[0]
+        if isinstance(right, ast.Name) and right.id in params:
+            left, right = right, left
+        if not (isinstance(left, ast.Name) and left.id in params):
+            continue
+        refused = id(node) in refusals and isinstance(node.ops[0], (ast.Eq, ast.In))
+        for value in _strings(right, constants):
+            out[left.id, value] = out.get((left.id, value), True) and not refused
+    return out
+
+
+def _options(path):
+    """``{qualified function name: _option_values}`` of a module, methods
+    under ``Class.name``."""
+    tree = ast.parse(path.read_text())
+    constants = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            values = _strings(node.value, constants)
+            constants.update({t.id: values for t in node.targets
+                              if isinstance(t, ast.Name) and values})
+    out = {}
+
+    def visit(body, prefix):
+        for node in body:
+            if isinstance(node, ast.FunctionDef):
+                out[prefix + node.name] = _option_values(node, constants)
+            elif isinstance(node, ast.ClassDef):
+                visit(node.body, f"{prefix}{node.name}.")
+
+    visit(tree.body, "")
+    return out
+
+
+def _option_gaps(jax_root, port_root, modules):
+    """``(module, function, parameter, value)`` of each option value that a
+    JAX function accepts and its twin in the port does not."""
+    gaps = set()
+    for module in modules:
+        port_path = port_root / module
+        port = _options(port_path) if port_path.exists() else {}
+        for name, values in _options(jax_root / module).items():
+            for (param, value), accepted in values.items():
+                if accepted and not port.get(name, {}).get((param, value)):
+                    gaps.add((module, name, param, value))
+    return gaps
+
+
+# option values the port takes by another route: each is a structural
+# difference, with the reason (ROADMAP.md, "Deliberate differences")
+OPTION_ROUTES = {
+    # torch moves a signal to any device name; the JAX method took the two
+    # strings only to leave its arrays where jax had placed them
+    ("core/signal.py", "AudioSignal.to", "device", "cpu"): "torch's own device names",
+    ("core/signal.py", "AudioSignal.to", "device", "cuda"): "torch's own device names",
+    # every mode but "before" pads after, as the JAX package's elif does
+    ("core/signal.py", "AudioSignal.zero_pad_to", "mode", "after"): "the else branch",
+    # the silent entry is read in AudioLoader.__call__ (no _read helper)
+    ("data/datasets.py", "AudioLoader._read", "path", "none"): "read in __call__",
+    # the per-item PESQ body is _pesq_parts, which takes the mode's tables
+    ("ops/pesq.py", "_pesq_single", "mode", "wb"): "_pesq_parts' mode tables",
+    # the per-shard bodies of the jitted sharded STFT and iSTFT: the port's
+    # sharded_stft / sharded_istft compute them inline on the local shard,
+    # the analysis through ops.fft._analysis, and check the method first
+    ("parallel/timeshard.py", "_stft_raw", "method", "matmul"): "inline in sharded_stft",
+    ("parallel/timeshard.py", "_stft_raw", "method", "matmul_bf16"): "inline in sharded_stft",
+    ("parallel/timeshard.py", "_istft_raw", "method", "matmul"): "inline in sharded_istft",
+    ("parallel/timeshard.py", "_istft_raw", "method", "matmul_bf16"): "inline in sharded_istft",
+}
+
+
+def test_the_port_takes_every_option_value_the_jax_package_does():
+    """Every string a JAX function compares a parameter with (a method, a
+    mode, a formulation name), the port's twin of that function accepts, or
+    it is one of the structural routes above; a route that no longer
+    differs is taken off the list."""
+    gaps = _option_gaps(ROOT / "audiotools_tpu", ROOT / "audiotools_tpu_torch", PAIRS)
+    assert gaps == set(OPTION_ROUTES)
+
+
+def test_the_option_scan_finds_a_refused_value(tmp_path):
+    """A probe pair: the JAX side takes four values of ``method``; its twin
+    omits one, refuses another by name, and takes the rest through a
+    module-level tuple and an ``else``."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax" / "m.py").write_text(
+        "def f(x, method='a', mode='l'):\n"
+        "    if method in ('a', 'b'):\n        return x\n"
+        "    if method == 'c':\n        return -x\n"
+        "    if 'd' == method:\n        return 2 * x\n"
+        "    if mode == 'r':\n        raise ValueError(mode)\n"
+        "    raise ValueError(method)\n"
+        "class K:\n    def g(self, kind):\n        return kind != 'e'\n")
+    (tmp_path / "port" / "m.py").write_text(
+        "METHODS = ('a',) + ('b',)\n"
+        "def f(x, method='a', mode='l'):\n"
+        "    if method == 'c':\n        raise ValueError('not here')\n"
+        "    if method not in METHODS:\n        raise ValueError(method)\n"
+        "    return x\n"
+        "class K:\n    def g(self, kind):\n        return kind != 'e'\n")
+    assert _option_gaps(tmp_path / "jax", tmp_path / "port", ["m.py"]) == {
+        ("m.py", "f", "method", "c"), ("m.py", "f", "method", "d")}

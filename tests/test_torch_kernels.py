@@ -82,6 +82,40 @@ def test_phase_vocoder_matches_jax_fused_interpret(rate):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("rate", [2.0 ** (-2.0 / 12.0), 1.31, 0.77])
+def test_phasor_fused_interpret_matches_jax_interpret(rate):
+    """Both packages' interpreter-mode name: B's plain version against the
+    Pallas kernel interpreted, at B's pin."""
+    z = _spectrum(2, (2, 129, 61))
+    want = np.asarray(JS.phase_vocoder(jnp.asarray(z), rate, 64, 256,
+                                       formulation="phasor_fused_interpret"))
+    got = PS.phase_vocoder(torch.from_numpy(z), rate, 64, 256,
+                           formulation="phasor_fused_interpret").numpy()
+    assert got.shape == want.shape
+    assert _rel(got, want) < 1e-5
+
+
+def test_phasor_fused_interpret_runs_bs_plain_version(monkeypatch):
+    """``"phasor_fused_interpret"`` never calls kernel B's wrapper, with or
+    without grad, and gives what ``"phasor_fused"`` gives a CPU tensor;
+    ``time_stretch`` and ``pitch_shift`` pass the name through."""
+    z = torch.from_numpy(_spectrum(3, (1, 65, 40)))
+    x = torch.from_numpy((np.random.RandomState(4).randn(1, 1, 8192) * 0.1).astype(np.float32))
+    ops = ((PS.time_stretch, (1.2,)), (PS.pitch_shift, (2.0, 44100)))
+    want = PS.phase_vocoder(z, 0.9, 64, 256, formulation="phasor_fused")
+    want_ops = [op(x, *args, window_length=512, pv_formulation="phasor_fused")
+                for op, args in ops]
+    monkeypatch.setattr(HK, "phase_vocoder_fused", lambda *a, **k: pytest.fail("kernel B called"))
+    assert torch.equal(PS.phase_vocoder(z, 0.9, 64, 256, formulation="phasor_fused_interpret"),
+                       want)
+    grad = PS.phase_vocoder(z.clone().requires_grad_(True), 0.9, 64, 256,
+                            formulation="phasor_fused_interpret")
+    assert torch.equal(grad.detach(), want)
+    for (op, args), w in zip(ops, want_ops):
+        assert torch.equal(op(x, *args, window_length=512, pv_formulation="phasor_fused_interpret"),
+                           w)
+
+
 def test_phasor_track_matches_jax():
     z = _spectrum(1, (1, 2, 65, 40))
     i0, i1, frac = PS._pv_indices(40, 0.9)
@@ -126,7 +160,7 @@ def test_phase_vocoder_checks_its_tables():
         HK.phase_vocoder_fused(z.to(torch.complex128), i0, i1, frac)
     # an unknown formulation raises, as in the JAX package
     with pytest.raises(ValueError, match="formulation must be"):
-        PS.phase_vocoder(z, 0.8, 64, 256, formulation="phasor_fused_interpret")
+        PS.phase_vocoder(z, 0.8, 64, 256, formulation="phasor_fused_scan")
 
 
 # -- dispatch: CPU -> plain version; any other device -> kernel or raise ----

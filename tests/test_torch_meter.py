@@ -180,11 +180,61 @@ def test_apply_k_weighting_routes_as_the_jax_package(monkeypatch):
 
 
 def test_tpu_interpreter_mode_and_unknown_methods_raise():
-    x = torch.zeros(1, 1, 4410)
-    with pytest.raises(ValueError, match="pallas_interpret"):
-        PL.apply_k_weighting(x, SR, use_fir=True, conv_method="pallas_interpret")
+    """The JAX package's interpreter-mode name runs kernel C's plain version
+    (which is what ``"pallas"`` runs for a CPU tensor, so the two agree bit
+    for bit here); a name neither package knows raises."""
+    x = torch.from_numpy(_speechy(4, 1, 1, 4410, 0.3))
+    assert torch.equal(PL.apply_k_weighting(x, SR, use_fir=True, conv_method="pallas_interpret"),
+                       PL.apply_k_weighting(x, SR, use_fir=True, conv_method="pallas"))
     with pytest.raises(ValueError, match="conv_method must be one of"):
         PL.loudness(x, SR, use_fir=True, conv_method="toeplitz")
+
+
+def test_pallas_interpret_runs_kernel_cs_plain_version(monkeypatch):
+    """``conv_method="pallas_interpret"`` takes C's plain version under C's
+    tap limit, on any device, and never the kernel's wrapper; above the
+    limit it convolves by FFT, as ``"pallas"`` does."""
+    calls = []
+    real_plain, real_fft = HK.fir_causal_plain, PL.causal_fft_conv1d
+    monkeypatch.setattr(HK, "fir_causal", lambda x, h: pytest.fail("kernel C's wrapper called"))
+    monkeypatch.setattr(HK, "fir_causal_plain",
+                        lambda x, h: calls.append(("plain", h.shape[0])) or real_plain(x, h))
+    monkeypatch.setattr(PL, "causal_fft_conv1d", lambda x, h, block_size=None: calls.append(
+        ("fft", h.shape[0], block_size)) or real_fft(x, h, block_size))
+    x = torch.zeros(1, 1, 4410)
+    for zeros in (512, 2048, 4097):
+        PL.apply_k_weighting(x, SR, use_fir=True, conv_method="pallas_interpret", zeros=zeros)
+    assert calls == [("plain", 1023), ("plain", 4095), ("fft", 8193, None)]
+
+
+@pytest.mark.parametrize("zeros", [512, 2048])
+def test_apply_k_weighting_interpret_matches_jax_interpret(zeros):
+    """Both packages' interpreter modes: C's plain version against the
+    Pallas kernel interpreted, at ``test_apply_k_weighting_matches_jax``'s
+    pin."""
+    x = _speechy(3, 2, 1, SR // 2, 0.3)
+    want = np.asarray(JL.apply_k_weighting(jnp.asarray(x), SR, use_fir=True, zeros=zeros,
+                                           conv_method="pallas_interpret"))
+    got = PL.apply_k_weighting(torch.from_numpy(x), SR, use_fir=True, zeros=zeros,
+                               conv_method="pallas_interpret").numpy()
+    assert got.shape == want.shape == x.shape
+    assert np.abs(got - want).max() < 1e-4
+
+
+def test_fir_loudness_interpret_matches_jax_interpret():
+    """The meter's entry points with the interpreter-mode name against the
+    JAX package's (``loudness``, ``integrated_loudness``, the signal's
+    ``loudness``), at the meter readings' 1e-3 dB."""
+    x = (np.random.RandomState(11).randn(2, 1, SR) * 0.1).astype(np.float32)
+    kw = {"use_fir": True, "conv_method": "pallas_interpret"}
+    want = np.asarray(JL.loudness(jnp.asarray(x), SR, **kw))
+    assert np.abs(PL.loudness(torch.from_numpy(x), SR, **kw).numpy() - want).max() < 1e-3
+    got = AudioSignal(torch.from_numpy(x), SR, device="cpu").loudness(**kw).numpy()
+    assert np.abs(got - want).max() < 1e-3
+    xt = x.transpose(0, 2, 1).copy()  # (nb, nt, nch)
+    want = np.asarray(JL.integrated_loudness(jnp.asarray(xt), SR, **kw))
+    got = PL.integrated_loudness(torch.from_numpy(xt), SR, **kw).numpy()
+    assert np.abs(got - want).max() < 1e-3
 
 
 # -- the meter readings ------------------------------------------------------

@@ -88,7 +88,7 @@ rank, world = int(sys.argv[1]), int(sys.argv[2])
 address, inp, out = sys.argv[3:6]
 torch.set_num_threads(1)
 from audiotools_tpu_torch import AudioSignal
-from audiotools_tpu_torch.ops.fft import istft
+from audiotools_tpu_torch.ops.fft import istft, stft
 from audiotools_tpu_torch.ops.filters import causal_fft_conv1d
 from audiotools_tpu_torch.parallel import (make_mesh, shard_signal, sharded_fir_conv,
     sharded_frames, sharded_istft, sharded_loudness, sharded_resample, sharded_stft)
@@ -148,6 +148,7 @@ for div in (2, 4):
         sharded_istft(spec, 512, hop, mesh, method="matmul", n_valid=n_valid))
 res["stft_bf16"] = full(sharded_stft(shard(data["stft_x"]), 512, 128, mesh,
                                      method="matmul_bf16")[0])
+res["stft_bf16_local"] = stft(data["stft_x"], 512, 128, method="matmul_bf16").numpy()
 pad = np.load(inp.replace("inputs", "pad_spec"))
 res["pad"] = full(sharded_istft(shard(torch.from_numpy(pad["spec"])), 512, 128, mesh,
                                 n_valid=int(pad["n_valid"])))
@@ -340,12 +341,25 @@ def test_istft_bf16_synthesis_equals_the_local_one(run, hop_div):
 
 def test_stft_bf16_analysis_rounds_its_operands(run):
     """The bf16 analysis rounds frames and DFT matrices to bf16 (unit
-    roundoff 2^-9 each) and sums in fp32: off the fp32 spectrum by more
-    than fp32 rounding, and by less than the two roundings' 2^-8 of its
-    scale."""
+    roundoff 2^-8 each) and sums in fp32: off the fp32 spectrum by more
+    than fp32 rounding, and, as the products' rounding errors partly
+    cancel in each sum, by less than 2^-8 of its scale."""
     _, _, got, _ = run
     err = _max(got["stft_bf16"], got["stft_4"]) / np.abs(got["stft_4"]).max()
     assert 1e-6 < err < 2.0 ** -8
+
+
+def test_stft_bf16_analysis_is_the_single_device_one(run):
+    """The sharded bf16 analysis and the port's single-device
+    ``stft(method="matmul_bf16")`` round the same frames and matrices
+    through one helper (``ops.fft._analysis``) and sum them in fp32: within
+    1e-6 of the spectrum's scale on the valid frames, across the halos of 2
+    and 4 shards (one shard would refuse this 512/128 geometry)."""
+    _, _, got, meta = run
+    n_valid = meta["stft_4_n_valid"]
+    want = got["stft_bf16_local"]
+    assert want.shape[-1] == n_valid
+    assert _max(got["stft_bf16"][..., :n_valid], want) / np.abs(want).max() < 1e-6
 
 
 def test_istft_consumes_single_device_stft(run):

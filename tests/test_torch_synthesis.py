@@ -54,6 +54,41 @@ def test_fused_synthesis_matches_jax_interpret(win, hop, match_stride):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("match_stride", [False, True])
+@pytest.mark.parametrize("win,hop", [(2048, 512), (512, 128)])
+def test_fused_interpret_synthesis_matches_jax_interpret(win, hop, match_stride):
+    """Both packages' interpreter-mode name: E's plain version against the
+    Pallas kernel interpreted, at E's pin."""
+    spec = _spectrum(win, hop, match_stride, seed=5)
+    kwargs = dict(match_stride=match_stride, original_length=9000,
+                  method="matmul_bf16_fused_interpret")
+    want = np.asarray(JF.istft(jnp.asarray(spec), win, hop, **kwargs))
+    got = PF.istft(torch.from_numpy(spec), win, hop, **kwargs).numpy()
+    assert got.shape == want.shape == (2, 1, 9000)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("win,hop", [(2048, 512), (512, 100), (2048, 128)])
+def test_fused_interpret_synthesis_runs_es_plain_version(win, hop, monkeypatch):
+    """``"matmul_bf16_fused_interpret"`` never calls kernel E's wrapper: it
+    runs E's plain version under E's shape rule (bit-equal to
+    ``"matmul_bf16"``, which sums in the same order) and ``"matmul_bf16"``
+    outside it."""
+    calls = []
+    real_plain = HK.istft_synthesis_fused_plain
+    monkeypatch.setattr(HK, "istft_synthesis_fused", lambda *a: pytest.fail("kernel E called"))
+    monkeypatch.setattr(HK, "istft_synthesis_fused_plain",
+                        lambda *a: calls.append(a[2]) or real_plain(*a))
+    rng = np.random.RandomState(win + hop)
+    n_freq = win // 2 + 1
+    spec = torch.from_numpy(
+        ((rng.randn(2, n_freq, 20) + 1j * rng.randn(2, n_freq, 20)) * 0.1).astype(np.complex64))
+    got = PF.istft(spec, win, hop, length=3000, method="matmul_bf16_fused_interpret")
+    assert torch.equal(got, PF.istft(spec, win, hop, length=3000, method="matmul_bf16"))
+    in_rule = win % hop == 0 and win // hop <= HK.MAX_SYNTHESIS_OVERLAP
+    assert calls == ([hop] if in_rule else [])
+
+
 @pytest.mark.parametrize("win,hop", [(2048, 512), (512, 128), (256, 32)])
 def test_fused_synthesis_is_the_bf16_synthesis(win, hop):
     """On the CPU the fused method runs E's plain version: the numerics of
