@@ -353,8 +353,14 @@ class AudioSignal(EffectMixin, LoudnessMixin, PlayMixin, ImpulseResponseMixin, D
         return self
 
     def zero_pad_to(self, length: int, mode: str = "after"):
+        """Pad with zeros to ``length`` samples, ``"before"`` or ``"after"``
+        the audio; any other ``mode`` leaves the signal as it is."""
         shortfall = max(length - self.signal_length, 0)
-        return self.zero_pad(shortfall, 0) if mode == "before" else self.zero_pad(0, shortfall)
+        if mode == "before":
+            self.zero_pad(shortfall, 0)
+        elif mode == "after":
+            self.zero_pad(0, shortfall)
+        return self
 
     def trim(self, before: int, after: int):
         """Drop ``before`` samples at the start and ``after`` at the end."""

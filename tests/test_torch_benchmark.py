@@ -11,6 +11,7 @@ call, then N and 2N calls a pair.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu_torch.ops import benchmark as B
 from audiotools_tpu_torch.ops import perf as PP

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import scipy.signal as ss
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 

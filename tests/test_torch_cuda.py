@@ -9,6 +9,7 @@ suite's JAX setup and ``-o addopts=`` its coverage options):
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu_torch.ops import fft as PF
 from audiotools_tpu_torch.ops import filters as PFL

@@ -7,6 +7,8 @@ resample with identical coefficients.
 """
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu.ops import fft as JF
 from audiotools_tpu.ops import filters as JFL

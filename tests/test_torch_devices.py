@@ -14,6 +14,7 @@ touching a card.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu_torch import AudioSignal
 from audiotools_tpu_torch.core import util

@@ -15,6 +15,8 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(
@@ -384,9 +386,9 @@ def _option_values(fn, constants):
     return out
 
 
-def _options(path):
-    """``{qualified function name: _option_values}`` of a module, methods
-    under ``Class.name``."""
+def _functions(path):
+    """``({qualified function name: its node}, {module-level name: its
+    strings})`` of a module, methods under ``Class.name``."""
     tree = ast.parse(path.read_text())
     constants = {}
     for node in tree.body:
@@ -399,17 +401,29 @@ def _options(path):
     def visit(body, prefix):
         for node in body:
             if isinstance(node, ast.FunctionDef):
-                out[prefix + node.name] = _option_values(node, constants)
+                out[prefix + node.name] = node
             elif isinstance(node, ast.ClassDef):
                 visit(node.body, f"{prefix}{node.name}.")
 
     visit(tree.body, "")
-    return out
+    return out, constants
+
+
+def _options(path):
+    """``{qualified function name: _option_values}`` of a module."""
+    functions, constants = _functions(path)
+    return {name: _option_values(fn, constants) for name, fn in functions.items()}
 
 
 def _option_gaps(jax_root, port_root, modules):
     """``(module, function, parameter, value)`` of each option value that a
-    JAX function accepts and its twin in the port does not."""
+    JAX function accepts and its twin in the port does not.
+
+    It asks only whether the port takes each value that the JAX function
+    names. What a value that the JAX function does not name does in either
+    package is :func:`_unnamed_value_gaps`' question: an ``else`` in the port
+    that computes where the JAX function's ``elif`` chain computes nothing
+    takes every named value, so this scan passes it."""
     gaps = set()
     for module in modules:
         port_path = port_root / module
@@ -428,8 +442,6 @@ OPTION_ROUTES = {
     # strings only to leave its arrays where jax had placed them
     ("core/signal.py", "AudioSignal.to", "device", "cpu"): "torch's own device names",
     ("core/signal.py", "AudioSignal.to", "device", "cuda"): "torch's own device names",
-    # every mode but "before" pads after, as the JAX package's elif does
-    ("core/signal.py", "AudioSignal.zero_pad_to", "mode", "after"): "the else branch",
     # the silent entry is read in AudioLoader.__call__ (no _read helper)
     ("data/datasets.py", "AudioLoader._read", "path", "none"): "read in __call__",
     # the per-item PESQ body is _pesq_parts, which takes the mode's tables
@@ -476,3 +488,218 @@ def test_the_option_scan_finds_a_refused_value(tmp_path):
         "class K:\n    def g(self, kind):\n        return kind != 'e'\n")
     assert _option_gaps(tmp_path / "jax", tmp_path / "port", ["m.py"]) == {
         ("m.py", "f", "method", "c"), ("m.py", "f", "method", "d")}
+
+
+# -- what each package does with a value the JAX package never names ---------
+
+
+_UNNAMED = "\x00"  # a string that no function names, starts or ends with
+
+
+def _names(node, param):
+    return any(isinstance(n, ast.Name) and n.id == param for n in ast.walk(node))
+
+
+def _tests(node, param):
+    """Whether a test of ``param`` lies anywhere inside ``node``."""
+    return any(isinstance(n, (ast.If, ast.IfExp, ast.Assert, ast.While)) and _names(n.test, param)
+               for n in ast.walk(node))
+
+
+def _truth(test, param, value, constants):
+    """Whether ``test`` holds with ``param`` bound to the string ``value``.
+    It reads comparisons with strings (``==``, ``!=``, ``in``, ``not in``),
+    ``is (not) None``, ``.startswith``/``.endswith`` of a literal, and
+    ``and``, ``or``, ``not`` of them; None where the answer needs more."""
+    if isinstance(test, ast.BoolOp):
+        found = [_truth(v, param, value, constants) for v in test.values]
+        stop = isinstance(test.op, ast.Or)
+        return stop if stop in found else None if None in found else not stop
+    if isinstance(test, ast.UnaryOp) and isinstance(test.op, ast.Not):
+        found = _truth(test.operand, param, value, constants)
+        return None if found is None else not found
+    if isinstance(test, ast.Compare) and len(test.ops) == 1:
+        op, left, right = test.ops[0], test.left, test.comparators[0]
+        if isinstance(op, (ast.Eq, ast.NotEq)) and isinstance(right, ast.Name) and right.id == param:
+            left, right = right, left
+        if not (isinstance(left, ast.Name) and left.id == param):
+            return None
+        if isinstance(op, (ast.Is, ast.IsNot)) and isinstance(right, ast.Constant):
+            return (right.value is None) == isinstance(op, ast.IsNot)
+        strings = _strings(right, constants)
+        if strings and isinstance(op, (ast.Eq, ast.NotEq, ast.In, ast.NotIn)):
+            return (value in strings) == isinstance(op, (ast.Eq, ast.In))
+    if (isinstance(test, ast.Call) and isinstance(test.func, ast.Attribute)
+            and isinstance(test.func.value, ast.Name) and test.func.value.id == param
+            and test.func.attr in ("startswith", "endswith") and len(test.args) == 1):
+        strings = _strings(test.args[0], constants)
+        return getattr(value, test.func.attr)(tuple(strings)) if strings else None
+    return None
+
+
+def _step(test, param, alive, constants):
+    """The unnamed value's answer to ``test`` and the named values in
+    ``alive`` that surely answer the same; None where it cannot be read."""
+    taken = _truth(test, param, _UNNAMED, constants)
+    if taken is None:
+        return None, alive
+    return taken, {v for v in alive if _truth(test, param, v, constants) == taken}
+
+
+def _expression(node, param, alive, constants):
+    """``alive`` after the conditional expressions on ``param`` in
+    ``node``, each taking the unnamed value's branch; None where a test
+    cannot be read."""
+    if isinstance(node, ast.IfExp) and _names(node.test, param):
+        taken, alive = _step(node.test, param, alive, constants)
+        if taken is None:
+            return None
+        return _expression(node.body if taken else node.orelse, param, alive, constants)
+    for child in ast.iter_child_nodes(node):
+        if not isinstance(child, (ast.Lambda, ast.FunctionDef)):
+            alive = _expression(child, param, alive, constants)
+            if alive is None:
+                return None
+    return alive
+
+
+def _unnamed_outcomes(stmts, param, alive, constants):
+    """Where a string that names none of ``alive`` goes through ``stmts``.
+
+    ``alive`` holds the named values that have taken the same way so far.
+    Code that tests nothing of ``param`` runs alike for every value and is
+    passed over; a statement that holds such a test but does not test
+    ``param`` itself (an ``if`` on another argument) is followed down each
+    of its branches. The outcomes: ``"raise"`` where the value reaches a
+    ``raise`` or fails an ``assert``; ``"else"`` where it runs code that a
+    named value reaches the same way (an ``else``, a ``!=`` branch, or what
+    follows a chain that a named value also passes through untested);
+    ``"none"`` where no named value does (the code after an ``elif`` chain
+    that every named value left by a branch of its own); ``"unread"`` at a
+    test of ``param`` that :func:`_truth` cannot read."""
+    for i, s in enumerate(stmts):
+        rest = stmts[i + 1:]
+        if isinstance(s, (ast.If, ast.Assert)) and _names(s.test, param):
+            taken, alive = _step(s.test, param, alive, constants)
+            if taken is None:
+                return {"unread"}
+            if isinstance(s, ast.Assert):
+                if not taken:
+                    return {"raise"}
+                continue
+            return _unnamed_outcomes((s.body if taken else s.orelse) + rest, param, alive,
+                                     constants)
+        if isinstance(s, ast.If) and _tests(s, param):
+            return (_unnamed_outcomes(s.body + rest, param, alive, constants)
+                    | _unnamed_outcomes(s.orelse + rest, param, alive, constants))
+        if isinstance(s, (ast.With, ast.Try, ast.For, ast.While)) and _tests(s, param):
+            return _unnamed_outcomes(s.body + rest, param, alive, constants)
+        if isinstance(s, ast.Raise):
+            return {"raise"}
+        if not isinstance(s, (ast.FunctionDef, ast.ClassDef)):
+            alive = _expression(s, param, alive, constants)
+            if alive is None:
+                return {"unread"}
+        if isinstance(s, ast.Return):
+            break
+    return {"else" if alive else "none"}
+
+
+def _unnamed_value_classes(jax_root, port_root, modules):
+    """``{(module, function, parameter): (JAX class, port class)}`` for each
+    parameter that a JAX function compares with strings: what a string
+    outside those does in each package, the outcomes of
+    :func:`_unnamed_outcomes` joined by ``|`` (``"absent"`` for a function
+    the port does not have)."""
+    out = {}
+    for module in modules:
+        port_path = port_root / module
+        port, port_constants = _functions(port_path) if port_path.exists() else ({}, {})
+        functions, constants = _functions(jax_root / module)
+        for name, fn in functions.items():
+            named = {}
+            for param, value in _option_values(fn, constants):
+                named.setdefault(param, set()).add(value)
+            for param, values in named.items():
+                out[module, name, param] = tuple(
+                    "|".join(sorted(_unnamed_outcomes(f.body, param, values, c))) if f else "absent"
+                    for f, c in ((fn, constants), (port.get(name), port_constants)))
+    return out
+
+
+def _unnamed_value_gaps(jax_root, port_root, modules):
+    """The triples of :func:`_unnamed_value_classes` whose two classes
+    differ.
+
+    It compares where an unnamed value goes, read from the syntax of the two
+    functions alone: a chain reached through a helper call in one package
+    and inline in the other is a structural route (``OPTION_ROUTES``), and a
+    test it cannot read makes a class ``unread``. What each package does
+    with a value that it names is :func:`_option_gaps`' question."""
+    return {key: classes for key, classes in
+            _unnamed_value_classes(jax_root, port_root, modules).items()
+            if classes[0] != classes[1]}
+
+
+# the port refuses a value that the JAX function never names and computes as
+# its default (``none``) or in an ``else`` branch; no documented value
+# changes its result. Each entry is a port ``raise`` against a JAX ``none``
+# or ``else`` (ROADMAP.md, "Deliberate differences")
+UNNAMED_VALUE_REFUSALS = {
+    # the meter's FIR route checks conv_method against CONV_METHODS first;
+    # the JAX package's meter takes any other string to its FFT convolution
+    ("ops/loudness.py", "apply_k_weighting", "conv_method"):
+        "CONV_METHODS guard; JAX falls through to the FFT path",
+    # the same guard on the equalizer's FIR; JAX runs its else (FFT) branch
+    ("ops/filters.py", "equalizer", "conv_method"):
+        "CONV_METHODS guard; JAX falls through to the FFT path",
+}
+
+
+def test_an_unnamed_option_value_goes_where_the_jax_package_sends_it():
+    """A string that a JAX function never compares its parameter with
+    raises, falls through, or takes an ``else`` in the port as it does in
+    the JAX package. The listed refusals differ only by raising; a
+    structural route of ``OPTION_ROUTES`` is exempt here for the same
+    reason as there."""
+    routed = {key[:3] for key in OPTION_ROUTES}
+    gaps = {key: classes for key, classes in
+            _unnamed_value_gaps(ROOT / "audiotools_tpu", ROOT / "audiotools_tpu_torch",
+                                PAIRS).items() if key not in routed}
+    assert set(gaps) == set(UNNAMED_VALUE_REFUSALS), gaps
+    for key, (jax_class, port_class) in gaps.items():
+        assert port_class == "raise" and "raise" not in jax_class.split("|"), key
+        assert UNNAMED_VALUE_REFUSALS[key]
+
+
+def test_the_unnamed_value_scan_finds_an_else_where_jax_has_an_elif(tmp_path):
+    """A probe pair: the JAX side pads before or after through an ``elif``
+    and no ``else``; its twin pads after in an ``else``, once as a
+    conditional expression and once as a statement, refuses an unnamed
+    method through a module-level tuple, and matches on the last function."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    chain = ("    if mode == 'before':\n        x = [0] + x\n"
+             "    elif mode == 'after':\n        x = x + [0]\n    return x\n")
+    (tmp_path / "jax" / "m.py").write_text(
+        "def pad(x, mode='after'):\n" + chain
+        + "def trim(x, mode='after'):\n" + chain
+        + "def conv(x, method='fft'):\n"
+        "    if method == 'direct':\n        return -x\n    return x\n"
+        "def same(x, mode='after'):\n" + chain)
+    (tmp_path / "port" / "m.py").write_text(
+        "METHODS = ('fft',) + ('direct',)\n"
+        "def pad(x, mode='after'):\n"
+        "    return [0] + x if mode == 'before' else x + [0]\n"
+        "def trim(x, mode='after'):\n"
+        "    if mode == 'before':\n        x = [0] + x\n"
+        "    else:\n        x = x + [0]\n    return x\n"
+        "def conv(x, method='fft'):\n"
+        "    if method not in METHODS:\n        raise ValueError(method)\n"
+        "    return -x if method == 'direct' else x\n"
+        "def same(x, mode='after'):\n" + chain)
+    assert _unnamed_value_gaps(tmp_path / "jax", tmp_path / "port", ["m.py"]) == {
+        ("m.py", "pad", "mode"): ("none", "else"),
+        ("m.py", "trim", "mode"): ("none", "else"),
+        ("m.py", "conv", "method"): ("none", "raise")}
+    assert _unnamed_value_gaps(tmp_path / "jax", tmp_path / "jax", ["m.py"]) == {}

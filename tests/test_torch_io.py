@@ -15,6 +15,8 @@ from dataclasses import astuple
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu import AudioSignal as JAudioSignal
 from audiotools_tpu.core.loudness import Meter as JMeter

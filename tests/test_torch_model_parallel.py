@@ -26,6 +26,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 import flax.linen as fnn
 from audiotools_tpu.models import DAC as JDAC

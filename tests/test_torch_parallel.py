@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 from jax.sharding import Mesh
 
 from audiotools_tpu import AudioSignal as JSignal

@@ -11,6 +11,7 @@ import re
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu_torch import _build
 from audiotools_tpu_torch.ops import hopper_kernels as HK

@@ -28,6 +28,7 @@ import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu import AudioSignal as JSignal  # noqa: E402
 from audiotools_tpu import post as jpost  # noqa: E402

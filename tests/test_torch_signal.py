@@ -3,6 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu import AudioSignal as JSignal
 from audiotools_tpu.core import Meter as JMeter
@@ -202,6 +203,18 @@ def test_signal_construction_and_shape_ops(tmp_path):
         AudioSignal(x)
     with pytest.raises(ValueError, match="Cannot build"):
         AudioSignal(3.0, SR)
+
+
+@pytest.mark.parametrize("mode", ["after", "before", "center"])
+@pytest.mark.parametrize("length", [1500, 600])
+def test_zero_pad_to_matches_jax(length, mode):
+    """Padding before or after, or for any other mode (and for a target
+    shorter than the signal) not at all, as the JAX package does."""
+    port, jax_sig = _pair(_audio(13, (2, 2, 1000)))
+    assert port.zero_pad_to(length, mode=mode) is port
+    jax_sig.zero_pad_to(length, mode=mode)
+    assert port.signal_length == jax_sig.signal_length
+    assert np.array_equal(port.audio_data.numpy(), np.asarray(jax_sig.audio_data))
 
 
 def test_batch_pads_or_refuses_mismatched_signals():

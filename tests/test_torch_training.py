@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu.models import adversarial as JA
 from audiotools_tpu.models import train as JT

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu import AudioSignal as JSignal
 from audiotools_tpu.core import util as ju
