@@ -97,14 +97,15 @@ class BaseTransform:
         """Apply the transform where the mask is true: directly when the
         mask is a host array that is all true (and the transform is not a
         child of ``Choose``), else by computing all items and selecting per
-        item."""
-        tfm_kwargs = dict(self._prepare(kwargs))
-        mask = tfm_kwargs.pop("mask")
-        if not self._force_masked and not isinstance(mask, torch.Tensor) and np.all(mask):
-            return self._transform(signal, **tfm_kwargs)
-        original = signal.clone()
-        transformed = self._transform(signal, **tfm_kwargs)
-        return AudioSignal.where(mask, transformed, original)
+        item. Both paths are the span ``transform.<class name>``."""
+        with span("transform", type(self).__name__):
+            tfm_kwargs = dict(self._prepare(kwargs))
+            mask = tfm_kwargs.pop("mask")
+            if not self._force_masked and not isinstance(mask, torch.Tensor) and np.all(mask):
+                return self._transform(signal, **tfm_kwargs)
+            original = signal.clone()
+            transformed = self._transform(signal, **tfm_kwargs)
+            return AudioSignal.where(mask, transformed, original)
 
     def __call__(self, *args, **kwargs):
         return self.transform(*args, **kwargs)

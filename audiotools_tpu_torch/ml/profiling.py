@@ -5,6 +5,16 @@ enclosed block with ``torch.profiler`` (host operations, and the card's
 kernels and copies where there is a card) and writes a Chrome trace under
 ``log_dir`` that TensorBoard's profiler plugin and Perfetto read;
 ``annotate`` names a region of it.
+
+The trace also shows the program's own ranges, each named ``audiotools.``
+and the phase (``_hostprof.span``), with the device work each launched
+beneath it: ``transform.<class>`` for each transform (a ``Compose``'s
+children inside it), ``loudness`` for each BS.1770 meter call on the
+device, ``dac.encoder``, ``dac.quantizer`` and ``dac.decoder``, the
+adversarial step's ``generator``, ``discriminator``, ``backward`` and
+``optimizer``, ``compress`` and ``decompress``, and the data path's
+``decode``, ``salient_meter``, ``resample``, ``instantiate``, ``collate``
+and ``device_put``.
 """
 import contextlib
 from pathlib import Path

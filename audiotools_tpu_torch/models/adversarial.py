@@ -13,6 +13,7 @@ reconstruction step does, and the metrics are the global batch's.
 """
 import torch
 
+from .._hostprof import span
 from ..parallel import tensor as _tp
 from .train import codec_loss
 
@@ -64,28 +65,41 @@ def make_adversarial_train_step(gen, disc, g_optimizer, d_optimizer, sample_rate
     against the current discriminator (its outputs on the real audio are
     constants of this update). Discriminator: LSGAN real against fake on
     the step's reconstruction. The metrics are detached tensors; for models
-    placed on a mesh, the global batch's (over ``gen``'s data axis).
+    placed on a mesh, the global batch's (over ``gen``'s data axis). The
+    step's phases are the spans ``generator`` (``codec_loss``),
+    ``discriminator`` (the ensemble's four calls), ``backward`` and
+    ``optimizer`` (both optimizers' ``zero_grad`` and ``step``).
     """
     g_params = [p for p in gen.parameters() if p.requires_grad]
 
     def train_step(audio):
-        g_optimizer.zero_grad(set_to_none=True)
-        recon_loss, metrics, recon = codec_loss(gen, audio, sample_rate, return_recon=True)
-        fake_outs = disc(recon)
-        with torch.no_grad():
-            real_outs = disc(audio)
+        with span("optimizer"):
+            g_optimizer.zero_grad(set_to_none=True)
+        with span("generator"):
+            recon_loss, metrics, recon = codec_loss(gen, audio, sample_rate, return_recon=True)
+        with span("discriminator"):
+            fake_outs = disc(recon)
+            with torch.no_grad():
+                real_outs = disc(audio)
         adv = generator_adversarial_loss(fake_outs)
         fm = feature_matching_loss(real_outs, fake_outs)
         loss = recon_loss + ADV_LOSS_WEIGHTS["adv/gen"] * adv + ADV_LOSS_WEIGHTS["adv/feature"] * fm
-        loss.backward(inputs=g_params)
-        g_optimizer.step()
+        with span("backward"):
+            loss.backward(inputs=g_params)
+        with span("optimizer"):
+            g_optimizer.step()
         metrics = dict(metrics, **{"loss": loss, "loss/adv": adv, "loss/feature": fm})
 
-        d_optimizer.zero_grad(set_to_none=True)
+        with span("optimizer"):
+            d_optimizer.zero_grad(set_to_none=True)
         recon = recon.detach()
-        d_loss = discriminator_loss(disc(audio), disc(recon))
-        d_loss.backward()
-        d_optimizer.step()
+        with span("discriminator"):
+            real_outs, fake_outs = disc(audio), disc(recon)
+        d_loss = discriminator_loss(real_outs, fake_outs)
+        with span("backward"):
+            d_loss.backward()
+        with span("optimizer"):
+            d_optimizer.step()
         metrics["loss/discriminator"] = d_loss
         return _tp.data_mean(gen, {k: v.detach() for k, v in metrics.items()})
 

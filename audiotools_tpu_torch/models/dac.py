@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._hostprof import span
 from ..ml.layers.base import BaseModel
 from ..ops._fp32 import strict_fp32
 from ..parallel import tensor as _tp
@@ -443,9 +444,12 @@ class DAC(BaseModel):
         ``codes`` ``(B, n_q, T')``, ``vq/commitment_loss`` and
         ``vq/codebook_loss``."""
         T = audio.shape[-1]
-        z = self.encoder(self._pad(audio))
-        z_q, codes, commitment_loss, codebook_loss = self.quantizer(z, n_quantizers)
-        recon = self.decoder(z_q)[..., :T]
+        with span("dac.encoder"):
+            z = self.encoder(self._pad(audio))
+        with span("dac.quantizer"):
+            z_q, codes, commitment_loss, codebook_loss = self.quantizer(z, n_quantizers)
+        with span("dac.decoder"):
+            recon = self.decoder(z_q)[..., :T]
         return {
             "audio": recon,
             "z": z_q,
@@ -456,14 +460,20 @@ class DAC(BaseModel):
 
     def encode(self, audio, n_quantizers: int = None):
         """Audio -> quantized latents and codes; the decoder does not run."""
-        z_q, codes, _, _ = self.quantizer(self.encoder(self._pad(audio)), n_quantizers)
+        with span("dac.encoder"):
+            z = self.encoder(self._pad(audio))
+        with span("dac.quantizer"):
+            z_q, codes, _, _ = self.quantizer(z, n_quantizers)
         return z_q, codes
 
     def decode_from_latents(self, z_q):
         """Quantized latents ``(B, D, T')`` -> audio ``(B, 1, T' hop)``."""
-        return self.decoder(z_q)
+        with span("dac.decoder"):
+            return self.decoder(z_q)
 
     def decode_from_codes(self, codes):
         """Stored codes ``(B, n_q, T')`` (any prefix of the cascade) -> audio
         ``(B, 1, T' hop)``."""
-        return self.decode_from_latents(self.quantizer.from_codes(codes))
+        with span("dac.quantizer"):
+            z_q = self.quantizer.from_codes(codes)
+        return self.decode_from_latents(z_q)

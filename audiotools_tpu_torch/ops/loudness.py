@@ -263,14 +263,15 @@ def integrated_loudness(data: torch.Tensor, rate: int, filter_class: str = "K-we
                         conv_method: str = None) -> torch.Tensor:
     """Integrated gated loudness (LUFS) of ``(nb, nt, nch)`` audio, ``(nb,)``.
     Meter options left at ``None`` take the defaults of
-    :func:`set_fast_meter`."""
-    if data.ndim == 1:
-        data = data[None, :, None]
-    elif data.ndim == 2:
-        data = data[None]
-    filtered = apply_k_weighting(data.float().transpose(-1, -2), rate, filter_class,
-                                 *_meter_options(use_fir, zeros, conv_method))
-    return _gated_lufs(filtered, rate, block_size)
+    :func:`set_fast_meter`. The span ``loudness``."""
+    with span("loudness"):
+        if data.ndim == 1:
+            data = data[None, :, None]
+        elif data.ndim == 2:
+            data = data[None]
+        filtered = apply_k_weighting(data.float().transpose(-1, -2), rate, filter_class,
+                                     *_meter_options(use_fir, zeros, conv_method))
+        return _gated_lufs(filtered, rate, block_size)
 
 
 def host_loudness(audio_data: np.ndarray, sample_rate: int,
@@ -301,11 +302,12 @@ def loudness(audio_data: torch.Tensor, sample_rate: int,
              use_fir: bool = None, zeros: int = None, conv_method: str = None) -> torch.Tensor:
     """Loudness of ``(nb, nch, nt)`` audio, padded to >= 0.5 s and clamped
     at -70 LKFS. Returns ``(nb,)``. Meter options as
-    :func:`integrated_loudness` takes them."""
-    nt = audio_data.shape[-1]
-    min_len = int(0.5 * sample_rate)
-    if nt < min_len:
-        audio_data = F.pad(audio_data, (0, min_len - nt))
-    filtered = apply_k_weighting(audio_data.float(), sample_rate, filter_class,
-                                 *_meter_options(use_fir, zeros, conv_method))
-    return torch.clamp(_gated_lufs(filtered, sample_rate, block_size), min=MIN_LOUDNESS)
+    :func:`integrated_loudness` takes them. The span ``loudness``."""
+    with span("loudness"):
+        nt = audio_data.shape[-1]
+        min_len = int(0.5 * sample_rate)
+        if nt < min_len:
+            audio_data = F.pad(audio_data, (0, min_len - nt))
+        filtered = apply_k_weighting(audio_data.float(), sample_rate, filter_class,
+                                     *_meter_options(use_fir, zeros, conv_method))
+        return torch.clamp(_gated_lufs(filtered, sample_rate, block_size), min=MIN_LOUDNESS)

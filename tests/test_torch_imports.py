@@ -172,6 +172,8 @@ PORT_ONLY = {
     "parallel/timeshard.py": {"ppermute"},
     # the decorator by which a kernel wrapper counts as its own work
     "ops/perf.py": {"counts_as"},
+    # the intervals of the spans made while torch.profiler recorded
+    "_hostprof.py": {"ranges"},
 }
 SIGNATURES = {
     # the mesh is a DeviceMesh over the process group; the device is the port's
@@ -234,6 +236,9 @@ SIGNATURES = {
                    ("model", "audio", "sample_rate", "return_recon")),
     # a DeviceMesh of ranks on a device type instead of a mesh of devices
     "make_mesh": (("shape",), ("shape", "device")),
+    # a span's name may come in parts, joined only where a sink is on (a
+    # transform's span takes its class name)
+    "span": (("name",), ("name", "*parts")),
 }
 
 
