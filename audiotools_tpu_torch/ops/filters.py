@@ -8,7 +8,8 @@ its band-split into one per-item FIR and runs it through kernel A
 (``hopper_kernels.fir_causal_batch``); the band split and the sinc filters
 convolve by ``torch.fft`` in fp32; biquads and the IIR cascade run by
 block state-space lifting: per-block Toeplitz matmuls in fp32 plus a
-sequential recurrence over block states.
+sequential recurrence over block states (kernel F,
+``hopper_kernels.iir_block_scan``, on the card).
 """
 import functools
 import math
@@ -328,7 +329,9 @@ def biquad_cascade(x: torch.Tensor, coeffs) -> torch.Tensor:
     K-weighting high-pass) a log-depth scan over the 2 x 2 state recurrence
     misses a float64 ``lfilter`` by 4e-3 in fp32, and the blocked form's
     fp32 products by ~5e-5 of the level, which the card and the CPU then
-    round differently; in float64 the products add no error of their own."""
+    round differently; in float64 the products add no error of their own.
+    On the card the cascade holds at most 8 stages (kernel F's limit of
+    ``hopper_kernels.MAX_SCAN_STATES`` = 16 states, 2 a stage); more raise."""
     return iir_cascade_blocked(x.double(), coeffs).to(x.dtype)
 
 
@@ -416,8 +419,11 @@ def iir_cascade_blocked(x: torch.Tensor, stages, block: int = 512) -> torch.Tens
     """Exact biquad-cascade filtering of ``(..., T)`` audio by block
     state-space lifting. ``stages``: ``(b, a, gain)`` triples.
 
-    The block-state recurrence is a sequential loop over blocks: a tree
-    scan would form explicit f32 powers of ``A^L`` and amplify rounding.
+    The block-state recurrence is sequential over blocks (kernel F,
+    ``hopper_kernels.iir_block_scan``, on the card): a tree scan would form
+    explicit f32 powers of ``A^L`` and amplify rounding. On the card a
+    cascade has at most ``hopper_kernels.MAX_SCAN_STATES`` states (2 a
+    stage).
     """
     stages_key = tuple(
         (tuple(float(v) for v in b), tuple(float(v) for v in a), float(g))
@@ -429,14 +435,9 @@ def iir_cascade_blocked(x: torch.Tensor, stages, block: int = 512) -> torch.Tens
     xf = F.pad(x.reshape(-1, T), (0, -T % block))
     rows = xf.shape[0]
     xb = xf.reshape(rows, -1, block)  # (B, nblk, L)
-    n_blk = xb.shape[1]
     with strict_fp32():
         part = xb @ phi_x_t  # in-block response to the block's own input
-        u = (xb @ psi_x_t).transpose(0, 1).contiguous()  # (nblk, B, ns)
-        s_pre = torch.zeros_like(u)  # state before each block
-        # one launch per block: s_pre[k + 1] = s_pre[k] A_L^T + u[k], in place
-        s_k, u_k = s_pre.unbind(0), u.unbind(0)
-        for k in range(n_blk - 1):
-            torch.addmm(u_k[k], s_k[k], a_l_t, out=s_k[k + 1])
-        y = part + s_pre.transpose(0, 1) @ phi_s_t
+        u = xb @ psi_x_t  # (B, nblk, ns): each block's input term of the next state
+        s_pre = hopper_kernels.iir_block_scan(u, a_l_t)  # state before each block
+        y = part + s_pre @ phi_s_t
     return y.reshape(rows, -1)[:, :T].reshape(batch_shape + (T,))

@@ -2,7 +2,9 @@
 (counterpart of ``audiotools_tpu/ops/pallas_kernels.py``): A, the per-item
 causal FIR; B, the fused phase vocoder; C, the causal FIR with one shared
 kernel; D, the exclusive complex cumulative product; E, the fused bf16
-iSTFT synthesis.
+iSTFT synthesis; and F, the blocked IIR's block-state recurrence, which
+replaces no Pallas kernel but the JAX package's ``lax.scan`` over block
+states.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its CUDA kernel (``csrc/*.cu``, built at first use by ``_build``) for a
@@ -49,15 +51,21 @@ __all__ = [
     "synthesis_weights",
     "istft_synthesis_fused",
     "istft_synthesis_fused_plain",
+    "MAX_SCAN_STATES",
+    "ScanPlan",
+    "scan_plan",
+    "iir_block_scan",
+    "iir_block_scan_plain",
 ]
 
 MAX_TAPS = 8192  # kernel C's limit (the shared-kernel FIR; the meter uses 1023 or 4095)
 MAX_TAPS_BATCH = 2048  # kernel A's limit (the equalizer's per-item FIR)
 MAX_SYNTHESIS_OVERLAP = 8  # kernel E: at most n_fft / hop overlapping frames
+MAX_SCAN_STATES = 16  # kernel F: states of a cascade (2 a biquad; the meter's has 4)
 
 LAUNCHES = {name: 0 for name in (
     "fir_causal_batch", "phase_vocoder_fused", "fir_causal", "rotation_cumprod",
-    "istft_synthesis_fused",
+    "istft_synthesis_fused", "iir_block_scan",
 )}
 
 _P = ctypes.c_void_p
@@ -71,6 +79,7 @@ _SIGNATURES = {
     "rotation_cumprod": ("rotation_cumprod", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "istft_synthesis_fused": ("istft_synthesis",
                               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "iir_block_scan": ("iir_block_scan", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -586,3 +595,88 @@ def istft_synthesis_fused(spec, w, hop: int, inv_env, edge: int = 0):
             inv_env.data_ptr(), out.data_ptr(), B, nt, edge, n_freq, w.shape[0], r, hop, hop_p,
             nt + 2 * edge + r - 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# F: the blocked IIR's block-state recurrence (replaces the lax.scan of
+# audiotools_tpu/ops/filters.py::iir_cascade_blocked)
+# ---------------------------------------------------------------------------
+
+
+def _check_scan(u, a_l_t):
+    if u.ndim != 3 or a_l_t.shape != (u.shape[-1], u.shape[-1]):
+        raise ValueError(f"expected u (rows, n_blk, ns) and (A^L)^T (ns, ns), got "
+                         f"{tuple(u.shape)}, {tuple(a_l_t.shape)}")
+    if u.dtype not in (torch.float32, torch.float64) or a_l_t.dtype != u.dtype:
+        raise TypeError(f"expected float32 or float64 of one type, got {u.dtype}, {a_l_t.dtype}")
+
+
+def iir_block_scan_plain(u: torch.Tensor, a_l_t: torch.Tensor) -> torch.Tensor:
+    """``s_pre[:, 0] = 0``, ``s_pre[:, k + 1] = s_pre[:, k] @ a_l_t + u[:,
+    k]`` as a loop of one ``addmm`` a block over block-major planes, in
+    strict fp32. Returns ``(rows, n_blk, ns)``, a transposed view of the
+    block-major result."""
+    _check_scan(u, a_l_t)
+    u = u.transpose(0, 1).contiguous()  # (n_blk, rows, ns)
+    s_pre = torch.zeros_like(u)
+    # s_pre[k + 1] = s_pre[k] A_L^T + u[k], in place
+    s_k, u_k = s_pre.unbind(0), u.unbind(0)
+    with strict_fp32():
+        for k in range(u.shape[0] - 1):
+            torch.addmm(u_k[k], s_k[k], a_l_t, out=s_k[k + 1])
+    return s_pre.transpose(0, 1)
+
+
+class ScanPlan(NamedTuple):
+    """Kernel F's launch: ``threads`` rows a block (one thread each), each
+    step's input fetched ``depth`` steps ahead into a ring in shared memory,
+    ``blocks`` blocks."""
+    threads: int
+    depth: int
+    blocks: int
+
+
+def scan_plan(rows: int, ns: int, itemsize: int) -> ScanPlan:
+    """Kernel F's launch for ``rows`` rows of ``ns`` states of ``itemsize``
+    bytes, with the geometry its build takes (``_build.DEFINES``): the ring
+    holds ``SCAN_RING_BYTES`` a thread, 2 to ``SCAN_DEPTH`` steps."""
+    g = _build.DEFINES["iir_block_scan"]
+    depth = min(g["SCAN_DEPTH"], max(2, g["SCAN_RING_BYTES"] // (ns * itemsize)))
+    return ScanPlan(g["SCAN_THREADS"], depth, -(-rows // g["SCAN_THREADS"]))
+
+
+def _scan_work(u, a_l_t):
+    """``ns`` FMAs a state and step over ``n_blk - 1`` steps; ``u`` and the
+    transition read once, ``s_pre`` written once."""
+    rows, n_blk, ns = u.shape
+    return {"flops": 2.0 * rows * (n_blk - 1) * ns * ns,
+            "bytes": float(u.element_size()) * (2 * rows * n_blk * ns + ns * ns)}
+
+
+@counts_as(_scan_work)
+def iir_block_scan(u: torch.Tensor, a_l_t: torch.Tensor) -> torch.Tensor:
+    """The state before each block of a blocked IIR, from each block's
+    input term ``u`` ``(rows, n_blk, ns)`` and the transposed block
+    transition ``a_l_t`` ``(ns, ns)``: ``s_pre[:, 0] = 0``, ``s_pre[:, k +
+    1] = s_pre[:, k] @ a_l_t + u[:, k]``, sequential over blocks
+    (``csrc/iir_block_scan.cu``). float32 or float64, ``ns <=
+    MAX_SCAN_STATES``; ``u`` contiguous, as ``xb @ psi_x_t`` gives it.
+    Returns ``(rows, n_blk, ns)`` in the same layout."""
+    if u.device.type == "cpu":
+        return iir_block_scan_plain(u, a_l_t)
+    _refuse_grad("iir_block_scan", u, a_l_t)
+    _check_scan(u, a_l_t)
+    rows, n_blk, ns = u.shape
+    if ns > MAX_SCAN_STATES:
+        raise ValueError(f"iir_block_scan takes at most {MAX_SCAN_STATES} states, got {ns}")
+    if not (u.is_contiguous() and a_l_t.is_contiguous()):
+        raise RuntimeError("iir_block_scan: expected contiguous tensors")
+    if u.numel() == 0:  # no rows or no blocks: nothing to launch
+        return torch.zeros_like(u)
+    if u.data_ptr() % 16:  # the kernel moves whole 16-byte words of a row
+        u = u.clone()
+    s_pre = torch.empty_like(u)
+    plan = scan_plan(rows, ns, u.element_size())
+    _launch("iir_block_scan", (u, a_l_t, s_pre), u.data_ptr(), a_l_t.data_ptr(),
+            s_pre.data_ptr(), rows, n_blk, ns, u.element_size(), plan.depth, plan.blocks)
+    return s_pre

@@ -1,9 +1,11 @@
-"""Shapes that do not fill the tiles of the Hopper kernels.
+"""Shapes that do not fill the tiles of the Hopper kernels, and kernel
+F's tolerances.
 
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold each kernel against
-its plain version at these shapes; both read these lists.
+its plain version at these shapes; both read these lists and tolerances.
 """
 import numpy as np
+import torch
 
 from .stretch import _pv_indices
 
@@ -74,3 +76,29 @@ def pv_case(shape, rate, seed):
     i0[0] = 0
     i1 = rng.randint(0, T, n).astype(np.int32)
     return z, i0, i1, rng.rand(n).astype(np.float32)
+
+
+# Kernel F: (rows, n_blk, ns). One thread a row in blocks of 32 (its plan,
+# ``hopper_kernels.scan_plan``), inputs fetched 32 steps ahead at 4 fp32
+# states (4 to 32 by a step's bytes), in 16-, 8- or 4-byte words: one row,
+# rows not a multiple of the block, one block, fewer blocks than, and not a
+# multiple of, the prefetch depth, state counts across 1 to the limit (odd
+# ones move 4-byte words in fp32), and the meter's stacked rows.
+IIR_SCAN = [(1, 1, 4), (1, 2, 4), (33, 17, 4), (5, 431, 2), (3, 40, 1), (7, 33, 3), (2, 50, 6),
+            (65, 19, 8), (4, 31, 12), (3, 9, 15), (2, 25, 16), (128, 431, 4)]
+
+# Kernel F against its plain version, relative to the largest state. The
+# plain version's addmm rounds the product s @ (A^L)^T and the add of u
+# apart, through cuBLAS's split-K sums in its own order; the kernel fuses
+# each term into one FMA chain from u. Both carry their rounding forward
+# through the (contracting) recurrence: a few ulps of the state with a
+# well-conditioned transition (the scaled rotations at IIR_SCAN's shapes).
+SCAN_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# The meter's transition is ill-conditioned: the block of (A^L)^T that
+# maps its last two states is nearly rank one, with entries near +-31.7,
+# so each step cancels ~100x and the two versions' fp32 states part by
+# ~1e-4 of the largest (each ~6e-5 from the float64 recurrence; the
+# filtered audio each ~5e-6, under the cascade's 1e-4 pin). There the
+# kernel is held to the float64 recurrence of the same fp32 inputs: within
+# this many times the plain version's own error.
+SCAN_VS_PLAIN_ERROR = 2.0

@@ -21,20 +21,24 @@ runs, on card 0:
    E (fused bf16 iSTFT synthesis) at the pitch shift's synthesis (64 x 432
    frames of 2048, hop 512) and at n_fft 512, hop 128, with its
    peak-memory increment against ``istft(method="matmul_bf16")``, with and
-   without ``match_stride``; then kernel D's own path, its public entry
-   point ``rotation_cumprod`` (no library path calls it), with its launches
-   counted;
+   without ``match_stride``; kernel F (the exact meter's block-state
+   recurrence) at the meter's 64 and 128 rows x 431 blocks x 4 states, in
+   fp32 and fp64, against its plain version, the loop of one ``addmm`` a
+   block that it replaced, and one exact meter call of 128 rows through
+   each: host time to enqueue, device time and device operations; then
+   kernel D's own path, its public entry point ``rotation_cumprod`` (no
+   library path calls it), with its launches counted;
 5. three paths on a staged batch of 64 clips of 5 s at 44.1 kHz
    (AudioDataset -> DataLoader -> Compose(RoomImpulseResponse,
    BackgroundNoise, Equalizer, VolumeNorm) -> pitch_shift(+2 st) -> mel-80
    -> BS.1770 loudness), each timed per stage with CUDA events, with its
    peak memory, and checked to have launched its kernels: the main path
-   (exact meter, bf16 synthesis: A and B), the reference-parity path (the
+   (exact meter, bf16 synthesis: A, B and F), the reference-parity path (the
    FIR meter of ``set_fast_meter(True)`` and the fused synthesis: A, B, C
    and E), and the original-phase path (the main path with
    ``RoomImpulseResponse(use_original_phase=True)``: the wet magnitude on
    the dry STFT phase; its own dataset and staged batch, the same clips;
-   A and B);
+   A, B and F);
 6. the same chains on the card and on the CPU (plain versions) for the
    first 4 clips, against stated tolerances on every sample; the
    original-phase path also on a copy of its clips led by 0.25 s of exact
@@ -107,7 +111,7 @@ runs, on card 0:
    seconds, peak memory in fp32 and bf16, and one more step of the fp32
    and the bf16 loop under ``torch.profiler`` (device idle share, the
    kernels that take the most time). This path runs none of the five
-   kernels.
+   ported TPU kernels; its exact meters (``VolumeNorm``) launch kernel F.
 14. host I/O and codecs: the native WAV, FLAC and libav libraries built
    with g++ from ``audiotools_tpu_torch/native`` (seconds each), the system
    codec libraries present (mp3, vorbis, vorbis-encode, gsm, av, and the
@@ -125,7 +129,8 @@ runs, on card 0:
    ``ffmpeg_resample``, ``load_from_file_with_ffmpeg``) and ``write`` in
    every format from a card signal, read back. A format or preset whose
    system library is absent is printed as absent and not run. This path
-   runs none of the five kernels.
+   runs none of the five ported TPU kernels; its exact meters launch
+   kernel F.
 15. the long signal (``audiotools_tpu_torch.parallel``): one hour of
    stereo at 44.1 kHz made on the card from a seed, at world size 1 under
    ``nccl`` (``make_mesh({"sp": 1})``): the sharded K-weighting FIR,
@@ -745,6 +750,126 @@ def phase_rotation(planes):
     return launches
 
 
+# kernel F's chain bound: each of its n_blk - 1 steps is ns dependent FMAs,
+# at the FMA's latency (4 cycles fp32, 8 fp64 on Hopper, microbenchmarked
+# figures, an assumption here) and the H100 SXM's top SM clock
+FMA_CYCLES = {4: 4, 8: 8}
+SM_CLOCK_HZ = 1.98e9
+
+
+def scan_main_case(dev, rows, dtype=torch.float32):
+    """Kernel F's arguments at the exact meter's shapes: the K-weighting
+    cascade's u and (A^L)^T for ``rows`` rows of 5 s (431 blocks of 512, 4
+    states), from seeded noise."""
+    from audiotools_tpu_torch.ops import filters as PFL
+    from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops._fp32 import strict_fp32
+
+    n = int(SR * DURATION)
+    stages = [(b, a, g) for (b, a), g in PL.design_filters(SR)]
+    key = tuple((tuple(map(float, b)), tuple(map(float, a)), float(g)) for b, a, g in stages)
+    _, _, psi_x_t, a_l_t = PFL._iir_operators_on(key, 512, dev, dtype)
+    x = torch.from_numpy(np.random.RandomState(rows).randn(rows, n) * 0.1).to(dev, dtype)
+    with strict_fp32():
+        return F.pad(x, (0, -n % 512)).reshape(rows, -1, 512) @ psi_x_t, a_l_t
+
+
+@contextlib.contextmanager
+def addmm_loop():
+    """Every block-state recurrence through the loop of one ``addmm`` a
+    block that kernel F replaced (its plain version), on the card too."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    kernel = HK.iir_block_scan
+    HK.iir_block_scan = HK.iir_block_scan_plain
+    try:
+        yield
+    finally:
+        HK.iir_block_scan = kernel
+
+
+def phase_kernel_f(dev):
+    """Kernel F against its plain version (the addmm loop, also the
+    yardstick: no single PyTorch call computes the recurrence) at the exact
+    meter's shapes, beside its two bounds (bytes; the chain of dependent
+    FMAs); then one exact meter call of 128 stacked rows through F and
+    through the loop: host ms to enqueue it, device ms, and the device
+    operations it launches (torch.profiler)."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+    from audiotools_tpu_torch.ops import loudness as PL
+    from audiotools_tpu_torch.ops.ragged_shapes import SCAN_RTOL, SCAN_VS_PLAIN_ERROR
+
+    results = {}
+    # VolumeNorm's and the features' meter (64 rows), the mix's stacked
+    # signal and noise (128), and the float64 biquads' type at 128
+    for label, (rows, dtype) in {"meter": (BATCH, torch.float32),
+                                 "meter_stacked": (2 * BATCH, torch.float32),
+                                 "float64": (2 * BATCH, torch.float64)}.items():
+        u, a_l_t = scan_main_case(dev, rows, dtype)
+        _, n_blk, ns = u.shape
+        kernel = lambda: HK.iir_block_scan(u, a_l_t)  # noqa: E731
+        abs_err, rel_err, events_ms, plain_ms = compare_kernel(
+            "iir_block_scan", kernel, lambda: HK.iir_block_scan_plain(u, a_l_t), 50, 3)
+        if dtype == torch.float32:  # each against the float64 recurrence
+            ref = HK.iir_block_scan_plain(u.cpu().double(), a_l_t.cpu().double())
+            scale = ref.abs().max()
+            err = {k: float((out.cpu().double() - ref).abs().max() / scale) for k, out in (
+                ("kernel", kernel()), ("plain", HK.iir_block_scan_plain(u, a_l_t)))}
+            accurate = err["kernel"] <= SCAN_VS_PLAIN_ERROR * err["plain"]
+            against = (f"against the float64 recurrence: kernel {err['kernel']:.3e}, plain "
+                       f"{err['plain']:.3e} (kernel within {SCAN_VS_PLAIN_ERROR:g}x)")
+        else:
+            accurate = rel_err < SCAN_RTOL[dtype]
+            against = f"(tol {SCAN_RTOL[dtype]:g})"
+        # the profiler's device time: F is shorter than its wrapper's host
+        # time, so events around a loop of calls time the host
+        _, busy_ms, count, _ = profile_step(lambda _: [kernel() for _ in range(50)], None)
+        expect(count == 50, f"kernel F: the profiler saw {count} of 50 launches")
+        ms = busy_ms / max(count, 1)
+        work = HK.iir_block_scan.work(u, a_l_t)
+        yard = yardsticks(ms, work["flops"], FP32_FLOPS if dtype == torch.float32 else FP32_FLOPS / 2,
+                          work["bytes"], "none: no PyTorch call computes the block recurrence")
+        chain_ms = (n_blk - 1) * ns * FMA_CYCLES[u.element_size()] / SM_CLOCK_HZ * 1e3
+        plan = HK.scan_plan(rows, ns, u.element_size())
+        print(f"[kernel F] {label} {tuple(u.shape)} {str(dtype)[6:]} (plan {plan.threads} rows a "
+              f"block, {plan.blocks} blocks, inputs {plan.depth} steps ahead in a ring in shared "
+              f"memory): kernel - plain max_abs_err {abs_err:.3e} rel {rel_err:.3e}; {against} | "
+              f"kernel {ms * 1e3:.2f} us (profiler, mean of 50) | CUDA events over 50 calls "
+              f"{events_ms * 1e3:.2f} us a call | plain (addmm "
+              f"loop) {plain_ms:.4f} ms | bound {yard['bound_ms'] * 1e3:.3f} us ({yard['bound_by']}, "
+              f"{yard['share_of_bound']:.1%}) | chain bound {chain_ms * 1e3:.2f} us "
+              f"({chain_ms / ms:.1%})")
+        expect(accurate, f"kernel F is less accurate than its plain version ({label})")
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
+
+    x = torch.from_numpy(np.random.RandomState(11).randn(2 * BATCH, 1, int(SR * DURATION))
+                         .astype(np.float32) * 0.1).to(dev)
+    meter = {}
+    for path, ctx in (("kernel F", contextlib.nullcontext), ("addmm loop", addmm_loop)):
+        with ctx():
+            before = HK.LAUNCHES["iir_block_scan"]
+            PL.loudness(x, SR, use_fir=False)  # warm
+            torch.cuda.synchronize()
+            launched = HK.LAUNCHES["iir_block_scan"] - before
+            host = []
+            for _ in range(N_ITER):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                PL.loudness(x, SR, use_fir=False)
+                host.append((time.perf_counter() - t0) * 1e3)
+            device_ms = time_ms(lambda: PL.loudness(x, SR, use_fir=False), N_ITER)
+            _, _, ops, _ = profile_step(lambda a: PL.loudness(a, SR, use_fir=False), x)
+        meter[path] = dict(host_ms=float(np.median(host)), device_ms=device_ms, ops=ops,
+                           f_launches=launched)
+        print(f"[kernel F] exact meter call {tuple(x.shape)} through the {path}: host "
+              f"{meter[path]['host_ms']:.3f} ms to enqueue (median of {N_ITER}) | device "
+              f"{device_ms:.3f} ms | {ops} device operations (profiler) | kernel F launches "
+              f"{launched}")
+    expect(meter["kernel F"]["f_launches"] == 1 and meter["addmm loop"]["f_launches"] == 0,
+           f"exact meter call: kernel F launches {meter}")
+    return results, meter
+
+
 def peak_increment(fn):
     """Bytes that ``fn`` adds to the device's peak allocation."""
     torch.cuda.synchronize()
@@ -832,8 +957,9 @@ def phase_kernel_e(dev):
 
 def phase_ragged(dev):
     """Every kernel against its plain version at the shapes of
-    ``ops.ragged_shapes``, which do not fill their tiles: A, C and E within
-    the relative tolerance, B (both variants) and D bit for bit."""
+    ``ops.ragged_shapes``, which do not fill their tiles: A, C, E and F
+    (both types) within the relative tolerance, B (both variants) and D bit
+    for bit."""
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
@@ -862,6 +988,14 @@ def phase_ragged(dev):
             want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
             err = float((got - want).abs().max() / want.abs().max())
             worst["E"] = max(worst.get("E", 0.0), err)
+    for rows, n_blk, ns in RAGGED.IIR_SCAN:
+        q, _ = np.linalg.qr(rng.randn(ns, ns))
+        for dtype, key in ((torch.float32, "F"), (torch.float64, "F float64")):
+            a_l_t = torch.from_numpy(q * 0.9).to(dev, dtype)  # a contracting transition
+            u = torch.from_numpy(rng.randn(rows, n_blk, ns)).to(dev, dtype)
+            got, want = HK.iir_block_scan(u, a_l_t), HK.iir_block_scan_plain(u, a_l_t)
+            err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            worst[key] = max(worst.get(key, 0.0), err)
     exact = {}  # B and D: max abs error, which must be 0
     for case, (shape, rate) in enumerate(RAGGED.PV):
         z, i0, i1, frac = RAGGED.pv_case(shape, rate, seed=case)
@@ -1387,10 +1521,12 @@ def meter(fast: bool):
 # (label, the reverb's use_original_phase, fast meter, synthesis method,
 # kernels the path must launch)
 PATHS = [
-    ("main", False, False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
+    ("main", False, False, "matmul_bf16",
+     ("fir_causal_batch", "phase_vocoder_fused", "iir_block_scan")),
     ("parity", False, True, "matmul_bf16_fused",
      ("fir_causal_batch", "phase_vocoder_fused", "fir_causal", "istft_synthesis_fused")),
-    ("original_phase", True, False, "matmul_bf16", ("fir_causal_batch", "phase_vocoder_fused")),
+    ("original_phase", True, False, "matmul_bf16",
+     ("fir_causal_batch", "phase_vocoder_fused", "iir_block_scan")),
 ]
 # the silence-led copies of the card-vs-CPU check: their first 0.25 s set
 # to exact zeros (digital silence, where the sign of the FFT's zeros decided
@@ -2521,7 +2657,8 @@ def phase_training_loop(root, dev, card):
     print(f"[loop] bf16 {bf16_ms:.3f} against fp32 {fp32_ms:.3f} ms/step ({bf16_ms / fp32_ms:.3f}x); "
           f"peak bf16 {res['bf16']['peak'] / 2**30:.3f} against fp32 {a['peak'] / 2**30:.3f} GiB "
           f"| phase {time.perf_counter() - t_phase:.1f} s | {card}")
-    print(f"[launches] training loop: {launches} (none of the five kernels lies on this path)")
+    print(f"[launches] training loop: {launches} (none of the TPU kernels' ports lies on this "
+          f"path; its exact meters launch kernel F)")
     return launches, res
 
 
@@ -2571,7 +2708,7 @@ def phase_host_io(root, dev, card):
     AudioDataset -> DataLoader onto the card, every apply_codec preset on the
     staged batch (card against CPU), and the ffmpeg mixin's native routes.
     Launch counts are set to 0 just before and read just after (this path
-    runs none of the five kernels)."""
+    runs none of the TPU kernels' ports; its exact meters launch kernel F)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from audiotools_tpu_torch import AudioSignal, _build, native
@@ -2769,8 +2906,10 @@ def phase_host_io(root, dev, card):
     launches = dict(HK.LAUNCHES)
     print(f"[io] absent here: {res['absent'] or 'nothing'} | phase {time.perf_counter() - t_phase:.1f} s "
           f"| {card}")
-    print(f"[launches] host I/O and codecs: {launches} (none of the five kernels lies on this path)")
-    expect(not any(launches.values()), f"io: kernels launched {launches}")
+    print(f"[launches] host I/O and codecs: {launches} (none of the TPU kernels' ports lies on "
+          f"this path; the meters launch kernel F)")
+    expect(launches["iir_block_scan"] > 0 and not any(
+        v for k, v in launches.items() if k != "iir_block_scan"), f"io: kernels launched {launches}")
     return launches, res
 
 
@@ -3132,7 +3271,8 @@ def main_kernel_cases(dev):
     shapes of the kernel table's rows: A at the Equalizer's (64 rows of 5 s
     + 640, 641 taps), B at the pitch shift's without the track, C at the
     exact-length meter's (1023 taps), D at 65,600 x 432, E at the chain's
-    synthesis (64 x 432 x 1025, hop 512)."""
+    synthesis (64 x 432 x 1025, hop 512), F at the exact meter's stacked
+    rows (128 x 431 blocks x 4 states)."""
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import loudness as PL
@@ -3156,6 +3296,7 @@ def main_kernel_cases(dev):
             PL._composed_fir(SR, "K-weighting", 512)).to(dev))),
         "rotation_cumprod": (HK.rotation_cumprod, rotation_main_case(dev)),
         "istft_synthesis_fused": (HK.istft_synthesis_fused, (spec, w, 512, env)),
+        "iir_block_scan": (HK.iir_block_scan, scan_main_case(dev, 2 * BATCH)),
     }
 
 
@@ -3342,6 +3483,7 @@ def main():
     c = phase_kernel_c(dev)
     d, planes = phase_kernel_d(dev)
     e, _ = phase_kernel_e(dev)
+    f, _ = phase_kernel_f(dev)
     phase_ragged(dev)
     launches = {"rotation": phase_rotation(planes)}
     del planes
@@ -3383,14 +3525,18 @@ def main():
     if FAILED:
         fail(f"{len(FAILED)} failed checks: {FAILED}")
 
-    def row(name, source, line, paths, results, key=None):
+    def row(name, source, replaces, paths, results, key=None):
         """``results``: {shape label: measurements}, reported at ``key``, or
-        the measurements of one shape; ``launches`` summed over ``paths``."""
+        the measurements of one shape; ``launches`` summed over ``paths``;
+        ``replaces``: a line of ``pallas_kernels.py``, or the file and line of
+        what else the kernel replaces."""
         if key is None:
             results, key = {key: results}, key
         at = results[key]
+        if isinstance(replaces, int):
+            replaces = f"ops/pallas_kernels.py:{replaces}"
         return {"name": name, "route": "cuda", "source": f"audiotools_tpu_torch/csrc/{source}",
-                "replaces": f"audiotools_tpu/ops/pallas_kernels.py:{line}",
+                "replaces": f"audiotools_tpu/{replaces}",
                 "launches": sum(launches[path][name] for path in paths.split("+")),
                 "max_abs_err": max(v["abs_err"] for v in results.values()),
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
@@ -3406,6 +3552,9 @@ def main():
         # D has no caller in the library: its own path is its entry point
         row("rotation_cumprod", "rotation_cumprod.cu", 417, "rotation", d),
         row("istft_synthesis_fused", "istft_synthesis.cu", 527, "parity", e, "chain"),
+        # F replaces no Pallas kernel but the JAX package's lax.scan over block states
+        row("iir_block_scan", "iir_block_scan.cu", "ops/filters.py:597 (lax.scan)",
+            "main+original_phase", f, "meter_stacked"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,6 +17,7 @@ from audiotools_tpu_torch.ops import hopper_kernels as HK
 from audiotools_tpu_torch.ops import loudness as PL
 from audiotools_tpu_torch.ops import ragged_shapes as RAGGED
 from audiotools_tpu_torch.ops import stretch as PS
+from audiotools_tpu_torch.ops._fp32 import strict_fp32
 
 pytestmark = pytest.mark.cuda
 
@@ -247,6 +248,114 @@ def test_fir_meter_on_card_matches_cpu(cuda):
     assert (got.cpu() - want).abs().max() < 1e-3
 
 
+# -- F: the blocked IIR's block-state recurrence ----------------------------
+
+
+def _meter_scan_inputs(rows, dtype, device):
+    """The K-weighting cascade's u and (A^L)^T at 44.1 kHz for ``rows``
+    rows of 5 s (431 blocks of 512, 4 states), from seeded noise."""
+    stages = [(b, a, g) for (b, a), g in PL.design_filters(44100)]
+    key = tuple((tuple(map(float, b)), tuple(map(float, a)), float(g)) for b, a, g in stages)
+    _, _, psi_x_t, a_l_t = PFL._iir_operators_on(key, 512, device, dtype)
+    x = torch.from_numpy(np.random.RandomState(rows).randn(rows, 220500) * 0.1).to(device, dtype)
+    xb = torch.nn.functional.pad(x, (0, -220500 % 512)).reshape(rows, -1, 512)
+    with strict_fp32():
+        return xb @ psi_x_t, a_l_t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_block_scan_kernel_matches_plain_at_the_meter_shapes(cuda, rows, dtype):
+    """F against its plain version (fp64) or, in fp32, against the float64
+    recurrence within ``SCAN_VS_PLAIN_ERROR`` times the plain version's
+    error (``ops/ragged_shapes.py`` says why)."""
+    u, a_l_t = _meter_scan_inputs(rows, dtype, cuda)
+    assert u.shape == (rows, 431, 4)
+    before = HK.LAUNCHES["iir_block_scan"]
+    got = HK.iir_block_scan(u, a_l_t)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["iir_block_scan"] == before + 1
+    assert got.shape == u.shape and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+    plain = HK.iir_block_scan_plain(u, a_l_t)
+    if dtype == torch.float64:
+        assert _rel_err(got, plain) < RAGGED.SCAN_RTOL[dtype]
+        return
+    ref = HK.iir_block_scan_plain(u.cpu().double(), a_l_t.cpu().double())
+    assert _rel_err(got.double(), ref) <= RAGGED.SCAN_VS_PLAIN_ERROR * _rel_err(plain.double(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,n_blk,ns", RAGGED.IIR_SCAN)
+def test_block_scan_kernel_ragged_shapes(cuda, rows, n_blk, ns, dtype):
+    rng = np.random.RandomState(rows * 31 + n_blk * 7 + ns)
+    q, _ = np.linalg.qr(rng.randn(ns, ns))
+    a_l_t = torch.from_numpy(q * 0.9).to(cuda, dtype)  # a contracting transition
+    u = torch.from_numpy(rng.randn(rows, n_blk, ns)).to(cuda, dtype)
+    got = HK.iir_block_scan(u, a_l_t)
+    want = HK.iir_block_scan_plain(u, a_l_t)
+    if n_blk == 1:
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert _rel_err(got, want) < RAGGED.SCAN_RTOL[dtype]
+    # a contiguous input off a 16-byte boundary is copied, not refused
+    shifted = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), u.flatten()])[1:]
+    assert torch.equal(HK.iir_block_scan(shifted.view(u.shape), a_l_t), got)
+
+
+def test_block_scan_kernel_rejects_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError, match="at most 16 states"):
+        HK.iir_block_scan(torch.zeros(2, 5, 17, device=cuda), torch.zeros(17, 17, device=cuda))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        HK.iir_block_scan(torch.zeros(2, 5, 4, device=cuda),
+                          torch.zeros(4, 4, dtype=torch.float64, device=cuda))
+    with pytest.raises(RuntimeError, match="contiguous"):
+        HK.iir_block_scan(torch.zeros(5, 2, 4, device=cuda).transpose(0, 1),
+                          torch.zeros(4, 4, device=cuda))
+
+
+def test_exact_meter_on_card_matches_the_float64_lfilter_meter(cuda):
+    """The exact meter through kernel F against scipy's float64 ``lfilter``
+    cascade: the weighted audio within the blocked cascade's pin (1e-4,
+    test_torch_ops.py), the LUFS within the benchmark's ``lufs_db`` limit
+    (5e-4 LU, PERF.md); one launch of F a meter call."""
+    from scipy.signal import lfilter
+
+    rng = np.random.RandomState(21)
+    x = rng.randn(64, 1, 220500) * 0.05
+    x *= np.repeat(rng.rand(64, 1, 51) > 0.4, 4410, axis=-1)[..., :220500]  # both gates act
+    x = x.astype(np.float32)
+    ref = x.astype(np.float64)
+    for (b, a), g in PL.design_filters(44100):
+        ref = g * lfilter(b, a, ref, axis=-1)
+    before = HK.LAUNCHES["iir_block_scan"]
+    weighted = PL.apply_k_weighting(torch.from_numpy(x).to(cuda), 44100)
+    lufs = PL.loudness(torch.from_numpy(x).to(cuda), 44100, use_fir=False)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["iir_block_scan"] == before + 2
+    assert np.abs(weighted.cpu().numpy() - ref).max() < 1e-4
+    assert np.abs(lufs.cpu().numpy() - PL.host_loudness(x, 44100)).max() < 5e-4
+
+
+def test_chain_batch_launches_the_block_scan_once_a_meter_call(cuda, zoo_sources):
+    """One batch of the benchmark's chain (chip_smoke.py's main path) meters
+    three times, each through kernel F with the exact meter: the mix's
+    stacked signal and noise (BackgroundNoise), VolumeNorm and the
+    features' loudness. With the FIR meter F is never launched."""
+    from audiotools_tpu_torch.data import DataLoader
+    from chip_smoke import make_dataset, meter, run_chain
+
+    ds = make_dataset(zoo_sources, 8)
+    batch = next(iter(DataLoader(ds, batch_size=8, num_workers=0)))
+    for fast, want in ((False, {"iir_block_scan": 3, "fir_causal": 0}),
+                       (True, {"iir_block_scan": 0, "fir_causal": 3})):
+        with meter(fast):
+            before = dict(HK.LAUNCHES)
+            run_chain(ds, batch)
+            torch.cuda.synchronize()
+        assert {k: HK.LAUNCHES[k] - before[k] for k in want} == want
+
+
 # -- D: exclusive complex cumulative product --------------------------------
 
 
@@ -431,13 +540,15 @@ def _grad_inputs(cuda):
         "istft_synthesis_fused": lambda g: HK.istft_synthesis_fused(
             torch.randn(1, 3, 33, dtype=torch.complex64, device=cuda, requires_grad=g), w, 16,
             env),
+        "iir_block_scan": lambda g: HK.iir_block_scan(
+            torch.randn(3, 9, 4, device=cuda, requires_grad=g), torch.eye(4, device=cuda) * 0.5),
     }
 
 
 @pytest.mark.parametrize("name", ["fir_causal_batch", "fir_causal", "rotation_cumprod",
-                                  "istft_synthesis_fused"])
+                                  "istft_synthesis_fused", "iir_block_scan"])
 def test_kernels_without_backward_raise_on_grad(cuda, name):
-    """R5: kernels A, C, D and E have no backward. Given an input that
+    """R5: kernels A, C, D, E and F have no backward. Given an input that
     requires grad while grad mode is on, the wrapper raises instead of
     returning a result cut from the graph, and launches nothing; under
     ``no_grad`` the same call launches."""

@@ -15,6 +15,7 @@ from audiotools_tpu.ops import fft as JF
 from audiotools_tpu.ops import filters as JFL
 from audiotools_tpu.ops import loudness as JL
 from audiotools_tpu.ops import resample as JR
+from audiotools_tpu_torch import _build
 from audiotools_tpu_torch.ops import fft as PF
 from audiotools_tpu_torch.ops import filters as PFL
 from audiotools_tpu_torch.ops import hopper_kernels as HK
@@ -145,6 +146,112 @@ def test_iir_cascade_blocked_matches_jax(rate, block):
     for b, a, g in stages:
         ref = g * lfilter(b, a, ref, axis=-1)
     assert np.abs(got - ref).max() < 1e-4
+
+
+def _addmm_loop(u, a_l_t):
+    """The block-state loop as ``iir_cascade_blocked`` ran it before kernel
+    F: block-major planes, one ``addmm`` a block, in place."""
+    u = u.transpose(0, 1).contiguous()
+    s_pre = torch.zeros_like(u)
+    s_k, u_k = s_pre.unbind(0), u.unbind(0)
+    for k in range(u.shape[0] - 1):
+        torch.addmm(u_k[k], s_k[k], a_l_t, out=s_k[k + 1])
+    return s_pre.transpose(0, 1)
+
+
+def _cascade_with_the_loop(x, stages, block=512):
+    """``iir_cascade_blocked`` as it was before kernel F, epilogue and all."""
+    key = tuple((tuple(map(float, b)), tuple(map(float, a)), float(g)) for b, a, g in stages)
+    phi_x_t, phi_s_t, psi_x_t, a_l_t = PFL._iir_operators_on(key, block, x.device, x.dtype)
+    T = x.shape[-1]
+    xf = torch.nn.functional.pad(x.reshape(-1, T), (0, -T % block))
+    xb = xf.reshape(xf.shape[0], -1, block)
+    s_pre = _addmm_loop(xb @ psi_x_t, a_l_t)
+    y = xb @ phi_x_t + s_pre @ phi_s_t
+    return y.reshape(xf.shape[0], -1)[:, :T].reshape(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_scan_plain_is_the_addmm_loop_bit_for_bit(dtype):
+    """Kernel F's plain version, and the cascade on CPU tensors, give the
+    bits the loop gave: the CPU's numbers do not move."""
+    rng = np.random.RandomState(19)
+    stages = [(b, a, g) for (b, a), g in JL.design_filters(44100)]
+    key = tuple((tuple(map(float, b)), tuple(map(float, a)), float(g)) for b, a, g in stages)
+    a_l_t = PFL._iir_operators_on(key, 512, torch.device("cpu"), dtype)[3]
+    u = torch.from_numpy(rng.randn(5, 37, 4)).to(dtype)
+    got = HK.iir_block_scan(u, a_l_t)
+    assert got.shape == u.shape and got.dtype == dtype
+    assert torch.equal(got, _addmm_loop(u, a_l_t))
+    assert torch.equal(got[:, 0], torch.zeros(5, 4, dtype=dtype))
+    x = torch.from_numpy(rng.randn(2, 3, 44100 + 77) * 0.3).to(dtype)
+    assert torch.equal(PFL.iir_cascade_blocked(x, stages), _cascade_with_the_loop(x, stages))
+    assert torch.equal(PFL.biquad_cascade(x.float(), stages),
+                       _cascade_with_the_loop(x.float().double(), stages).float())
+
+
+def _fake_library(monkeypatch):
+    """A kernel library whose every entry point returns 0, so that a
+    wrapper's own checks and ``_launch``'s device check are reached."""
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    monkeypatch.setattr(_build, "library", lambda name: _Lib())
+
+
+def test_blocked_iir_off_the_cpu_reaches_the_scan_kernel_or_raises(monkeypatch):
+    """A tensor off the CPU ("meta" stands in for a CUDA tensor here) takes
+    kernel F once a cascade, and never the plain loop: a missing library
+    raises, and with a library the wrapper still requires CUDA tensors."""
+    monkeypatch.setattr(HK, "iir_block_scan_plain", lambda *a: pytest.fail("plain version ran"))
+    calls = []
+    real = HK.iir_block_scan
+    monkeypatch.setattr(HK, "iir_block_scan", lambda u, a: calls.append(u.shape) or real(u, a))
+    stages = [(b, a, g) for (b, a), g in JL.design_filters(44100)]
+    x = torch.zeros(2, 3, 5000, device="meta")
+
+    def missing(name):
+        raise RuntimeError(f"cannot load the {name} kernel library")
+
+    monkeypatch.setattr(_build, "library", missing)
+    with pytest.raises(RuntimeError, match="iir_block_scan kernel library"):
+        PFL.iir_cascade_blocked(x, stages)
+    assert calls == [(6, 10, 4)]
+    _fake_library(monkeypatch)
+    with pytest.raises(RuntimeError, match="expected CUDA tensors"):
+        PFL.biquad(x, [1.0, -1.8, 0.81], [1.0, -1.5, 0.6])
+    assert calls == [(6, 10, 4), (6, 10, 2)]
+
+
+def test_block_scan_checks_its_inputs(monkeypatch):
+    u, a = torch.zeros(2, 5, 4), torch.zeros(4, 4)
+    for bad_u, bad_a in ((u[0], a), (u, a[:3]), (u, torch.zeros(2, 2))):
+        with pytest.raises(ValueError, match=r"\(rows, n_blk, ns\)"):
+            HK.iir_block_scan(bad_u, bad_a)
+    for bad_u, bad_a in ((u.half(), a.half()), (u, a.double()), (u.int(), a.int())):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            HK.iir_block_scan(bad_u, bad_a)
+    # off the CPU: the kernel's own limits, before any launch
+    _fake_library(monkeypatch)
+    meta = {"device": "meta"}
+    u, a = torch.zeros(2, 5, 4, **meta), torch.zeros(4, 4, **meta)
+    with pytest.raises(ValueError, match="at most 16 states"):
+        HK.iir_block_scan(torch.zeros(2, 5, 17, **meta), torch.zeros(17, 17, **meta))
+    assert HK.MAX_SCAN_STATES == 16
+    before = dict(HK.LAUNCHES)
+    for empty in (torch.zeros(2, 0, 4, **meta), torch.zeros(0, 5, 4, **meta)):
+        out = HK.iir_block_scan(empty, a)  # nothing to launch: an empty result
+        assert out.shape == empty.shape and out.device == empty.device
+    assert HK.LAUNCHES == before
+    with pytest.raises(RuntimeError, match="contiguous"):
+        HK.iir_block_scan(torch.zeros(5, 2, 4, **meta).transpose(0, 1), a)
+    with pytest.raises(RuntimeError, match="contiguous"):
+        HK.iir_block_scan(u, a.T)
+    with pytest.raises(RuntimeError, match="no backward"):
+        HK.iir_block_scan(u.requires_grad_(), a)
+    with pytest.raises(RuntimeError, match="expected CUDA tensors"):
+        HK.iir_block_scan(u.detach(), a)
 
 
 def _speechy(seed, nb, nch, n):

@@ -222,6 +222,8 @@ def _kernel_cases():
         "rotation_cumprod": (HK.rotation_cumprod, HK.rotation_cumprod_plain, planes, {}),
         "istft_synthesis_fused": (HK.istft_synthesis_fused, HK.istft_synthesis_fused_plain,
                                   (spec, w, hop, env, 2), {}),
+        "iir_block_scan": (HK.iir_block_scan, HK.iir_block_scan_plain,
+                           (randn(3, 20, 4), randn(4, 4, scale=0.3)), {}),
     }
 
 
@@ -258,6 +260,9 @@ def test_kernel_work_is_the_bound_of_the_main_path_shapes():
     assert HK.istft_synthesis_fused.work(spec, w, 512, env) == {
         "flops": 2.0 * 64 * 432 * 2 * 1025 * 2048,
         "bytes": 8.0 * 64 * 432 * 1025 + 2.0 * 2064 * 2048 + 4.0 * 65 * env.numel()}
+    u = torch.empty(128, 431, 4, **meta)
+    assert HK.iir_block_scan.work(u, torch.empty(4, 4, **meta)) == {
+        "flops": 2.0 * 128 * 430 * 4 * 4, "bytes": 4.0 * (2 * 128 * 431 * 4 + 16)}
 
 
 # ---------------------------------------------------------------------------

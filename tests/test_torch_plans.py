@@ -1,8 +1,8 @@
-"""The launch plans of kernels B and D, on the CPU: the host-side arithmetic
-that sizes their blocks and rings (``hopper_kernels.pv_plan``,
-``rotation_plan``) from the geometry their builds take (``_build.DEFINES``),
-kernel B's frame ring replayed step by step, and the wrappers that pass the
-plans on. The kernels themselves run only on the card
+"""The launch plans of kernels B, D and F, on the CPU: the host-side
+arithmetic that sizes their blocks and rings (``hopper_kernels.pv_plan``,
+``rotation_plan``, ``scan_plan``) from the geometry their builds take
+(``_build.DEFINES``), kernel B's frame ring and kernel F's input ring
+replayed step by step, and the wrappers that pass the plans on. The kernels themselves run only on the card
 (``test_torch_cuda.py``), where each refuses a plan that does not match its
 build.
 """
@@ -63,7 +63,8 @@ def test_geometry_has_one_owner(source, monkeypatch):
         assert len(re.findall(rf"\b{macro}\b", text)) == 1
         assert re.search(rf"constexpr int \w+ = {macro};", text)
     plan = {"phase_vocoder": lambda: HK.pv_plan(MAIN_ROWS),
-            "rotation_cumprod": lambda: HK.rotation_plan(MAIN_ROWS, 432)}[source]
+            "rotation_cumprod": lambda: HK.rotation_plan(MAIN_ROWS, 432),
+            "iir_block_scan": lambda: HK.scan_plan(128, 4, 4)}[source]
     first = plan()
     macro = next(iter(_build.DEFINES[source]))
     monkeypatch.setitem(_build.DEFINES, source, {**_build.DEFINES[source], macro: 64})
@@ -276,3 +277,68 @@ def test_rotation_wrapper_raises_on_bad_planes_and_devices(monkeypatch):
     with pytest.raises(RuntimeError, match="expected CUDA tensors"):
         HK.rotation_cumprod(*(torch.zeros(2, 5, device="meta"),) * 2,
                             *(torch.zeros(2, device="meta"),) * 2)
+
+
+# -- F: scan_plan and its ring ----------------------------------------------
+
+
+def test_scan_plan_at_the_meter_shapes():
+    """4 fp32 states (the K-weighting cascade): blocks of 32 rows, inputs 32
+    steps ahead; the meter's 64 and 128 rows take 2 and 4 blocks. In fp64,
+    16 steps ahead."""
+    assert HK.scan_plan(128, 4, 4) == (32, 32, 4)
+    assert HK.scan_plan(64, 4, 4) == (32, 32, 2)
+    assert HK.scan_plan(128, 4, 8) == (32, 16, 4)
+    assert HK.scan_plan(1, 2, 8) == (32, 32, 1)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("ns", range(1, HK.MAX_SCAN_STATES + 1))
+def test_scan_plan_fits_a_block(ns, itemsize):
+    """The ring, with the transition beside it, fits the block's static
+    shared memory (48 KB) and at least double-buffers; the blocks cover
+    every row once."""
+    plan = HK.scan_plan(1000, ns, itemsize)
+    geometry = _build.DEFINES["iir_block_scan"]
+    step = ns * itemsize
+    assert 2 <= plan.depth <= geometry["SCAN_DEPTH"]
+    assert plan.depth * step <= max(geometry["SCAN_RING_BYTES"], 2 * step)
+    assert plan.threads * plan.depth * step + ns * step <= 48 * 1024
+    assert _covered_once(1000, plan.threads, plan.blocks)
+
+
+def _replay_scan_ring(n_blk, depth):
+    """Kernel F's ring as ``csrc/iir_block_scan.cu`` runs it: steps 0 ..
+    depth - 1 fetched into slots 0 .. depth - 1, a commit group each, before
+    the first step; step 0 read from its slot after waiting for its group;
+    at step k, a wait that leaves depth - 2 groups pending, the read of step
+    k + 1's slot, then step k + depth fetched into step k's slot and a
+    group committed. Yields, for each read, the step being computed (-1
+    before the first), the step whose input the slot holds, and whether its
+    group had landed."""
+    groups = [d if d < n_blk else None for d in range(depth)]  # group g: its step
+    slots = {d: d for d in range(min(depth, n_blk))}
+    landed = len(groups) - (depth - 1)
+    yield -1, slots[0], groups.index(slots[0]) < landed
+    for k in range(n_blk):
+        landed = len(groups) - (depth - 2)
+        if k + 1 < n_blk:
+            step = slots[(k + 1) % depth]
+            yield k, step, groups.index(step) < landed
+        if k + depth < n_blk:
+            slots[k % depth] = k + depth
+            groups.append(k + depth)
+        else:
+            groups.append(None)
+
+
+@pytest.mark.parametrize("rows,n_blk,ns", RAGGED.IIR_SCAN)
+def test_scan_ring_holds_each_steps_input_when_it_reads_it(rows, n_blk, ns):
+    """At every ragged shape, in both types, each step's input is read
+    from a slot that holds it, after its copy's group has landed, one step
+    before it is used."""
+    for itemsize in (4, 8):
+        depth = HK.scan_plan(rows, ns, itemsize).depth
+        reads = list(_replay_scan_ring(n_blk, depth))
+        assert [step for _, step, _ in reads] == list(range(n_blk))
+        assert all(step == k + 1 and landed for k, step, landed in reads)
