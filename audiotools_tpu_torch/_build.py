@@ -28,22 +28,25 @@ FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("fir_causal_batch", "phase_vocoder", "rotation_cumprod", "istft_synthesis",
-           "iir_block_scan")
+           "iir_block_scan", "snake")
 # Per-source flags. The phasor recurrences (kernels B and D) compound
 # rounding over every step, so their products and sums round one by one,
 # as in the plain PyTorch versions (no FMA contraction); no source uses
-# fast math.
+# fast math. Snake (kernel G) rounds each of its own products by intrinsic
+# and keeps the default, so that its sinf compiles as PyTorch's does.
 EXTRA_FLAGS = {"phase_vocoder": ["--fmad=false"], "rotation_cumprod": ["--fmad=false"]}
-# Compile-time geometry of kernels B, D and F, passed to nvcc as -D flags.
-# The launch plans (ops/hopper_kernels.py::pv_plan, rotation_plan,
-# scan_plan) read it here, so that a kernel and its plan take it from one
-# place: B's rows a block and prefetch depth in steps; D's rows a block,
-# steps a tile and tiles in its ring; F's rows a block, bytes of its input
-# ring a thread and deepest prefetch in steps.
+# Compile-time geometry of kernels B, D, F and G, passed to nvcc as -D
+# flags. The launch plans (ops/hopper_kernels.py::pv_plan, rotation_plan,
+# scan_plan, snake_plan) read it here, so that a kernel and its plan take it
+# from one place: B's rows a block and prefetch depth in steps; D's rows a
+# block, steps a tile and tiles in its ring; F's rows a block, bytes of its
+# input ring a thread and deepest prefetch in steps; G's threads a block and
+# 16-byte loads a lane.
 DEFINES = {
     "phase_vocoder": {"PV_THREADS": 512, "PV_DEPTH": 16},
     "rotation_cumprod": {"ROT_ROWS": 128, "ROT_STEPS": 32, "ROT_STAGES": 3},
     "iir_block_scan": {"SCAN_THREADS": 32, "SCAN_RING_BYTES": 512, "SCAN_DEPTH": 32},
+    "snake": {"SNAKE_THREADS": 256, "SNAKE_UNROLL": 4},
 }
 
 # The host libraries: g++'s flags and link libraries for each

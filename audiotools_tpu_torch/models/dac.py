@@ -15,8 +15,9 @@ runs in full fp32, as the JAX package pins it at ``HIGHEST``.
 and transposed conv of the encoder and decoder casts its input, weight and
 bias to ``dtype`` where it uses them (explicit casts, not autocast, so the
 model computes what the JAX package computes); Snake runs in its input's
-dtype. The encoder hands fp32 latents to the quantizer and the decoder
-returns an fp32 waveform.
+dtype, through kernel G for fp32 on the card (``snake``). The encoder
+hands fp32 latents to the quantizer and the decoder returns an fp32
+waveform.
 
 ``DAC(formulation=...)`` takes the JAX package's names (``"conv"``,
 ``"hybrid"``, ``"matmul"``) and computes every one as convs. The JAX
@@ -43,6 +44,7 @@ from torch import nn
 
 from .._hostprof import span
 from ..ml.layers.base import BaseModel
+from ..ops import hopper_kernels as HK
 from ..ops._fp32 import strict_fp32
 from ..parallel import tensor as _tp
 
@@ -65,8 +67,14 @@ __all__ = [
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Snake activation ``x + sin^2(alpha x) / alpha``."""
-    return x + (1.0 / (alpha + 1e-9)) * torch.sin(alpha * x) ** 2
+    """Snake activation ``x + sin^2(alpha x) / alpha``. An fp32 input on the
+    card runs kernel G (``hopper_kernels.snake``: one pass forward, one
+    backward, saving only ``x`` and ``alpha``), bit for bit the expression;
+    every other dtype or device runs the expression itself, so a bf16 model
+    rounds after each operation as before."""
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return HK.snake(x, alpha)
+    return HK.snake_plain(x, alpha)
 
 
 class Snake(nn.Module):

@@ -2,17 +2,19 @@
 (counterpart of ``audiotools_tpu/ops/pallas_kernels.py``): A, the per-item
 causal FIR; B, the fused phase vocoder; C, the causal FIR with one shared
 kernel; D, the exclusive complex cumulative product; E, the fused bf16
-iSTFT synthesis; and F, the blocked IIR's block-state recurrence, which
+iSTFT synthesis; F, the blocked IIR's block-state recurrence, which
 replaces no Pallas kernel but the JAX package's ``lax.scan`` over block
-states.
+states; and G, DAC's Snake activation forward and backward, which replaces
+no Pallas kernel but a chain of eager elementwise kernels.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its CUDA kernel (``csrc/*.cu``, built at first use by ``_build``) for a
 tensor on the card; for any other device, or when the kernel cannot be
-built, it raises. A kernel has no backward: on the card, a wrapper given an
-input that requires grad while grad mode is on raises rather than return a
-result cut from the graph (the differentiable vocoder wraps B in
-``ops.stretch._FusedPhaseVocoder``). ``LAUNCHES`` counts the kernel
+built, it raises. Kernels A-F have no backward: on the card, a wrapper
+given an input that requires grad while grad mode is on raises rather than
+return a result cut from the graph (the differentiable vocoder wraps B in
+``ops.stretch._FusedPhaseVocoder``); G's forward and backward are one
+``torch.autograd.Function`` (``snake``). ``LAUNCHES`` counts the kernel
 launches of each wrapper, so a run can show that its main path went
 through the kernels. Each wrapper counts, under ``perf.xla_cost``, as its
 function's own work (``wrapper.work(*args)``: the flops and bytes its bound
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 from ._fp32 import strict_fp32
@@ -56,6 +59,12 @@ __all__ = [
     "scan_plan",
     "iir_block_scan",
     "iir_block_scan_plain",
+    "SnakePlan",
+    "snake_plan",
+    "snake",
+    "snake_plain",
+    "snake_backward",
+    "snake_backward_plain",
 ]
 
 MAX_TAPS = 8192  # kernel C's limit (the shared-kernel FIR; the meter uses 1023 or 4095)
@@ -65,7 +74,7 @@ MAX_SCAN_STATES = 16  # kernel F: states of a cascade (2 a biquad; the meter's h
 
 LAUNCHES = {name: 0 for name in (
     "fir_causal_batch", "phase_vocoder_fused", "fir_causal", "rotation_cumprod",
-    "istft_synthesis_fused", "iir_block_scan",
+    "istft_synthesis_fused", "iir_block_scan", "snake", "snake_backward",
 )}
 
 _P = ctypes.c_void_p
@@ -80,6 +89,8 @@ _SIGNATURES = {
     "istft_synthesis_fused": ("istft_synthesis",
                               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "iir_block_scan": ("iir_block_scan", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "snake": ("snake", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "snake_backward": ("snake", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -680,3 +691,141 @@ def iir_block_scan(u: torch.Tensor, a_l_t: torch.Tensor) -> torch.Tensor:
     _launch("iir_block_scan", (u, a_l_t, s_pre), u.data_ptr(), a_l_t.data_ptr(),
             s_pre.data_ptr(), rows, n_blk, ns, u.element_size(), plan.depth, plan.blocks)
     return s_pre
+
+
+# ---------------------------------------------------------------------------
+# G: DAC's Snake activation, forward and backward (replaces no Pallas
+# kernel: the eager chain of models/dac.py::snake)
+# ---------------------------------------------------------------------------
+
+
+def snake_plain(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake ``x + sin^2(alpha x) / (alpha + 1e-9)``, as the eager
+    expression of the JAX package's ``models/dac.py::snake``, for any dtype,
+    device and broadcastable shapes."""
+    return x + (1.0 / (alpha + 1e-9)) * torch.sin(alpha * x) ** 2
+
+
+def snake_backward_plain(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor):
+    """Kernel G's backward in torch: the gradients of ``snake_plain(x,
+    alpha)`` against its output's gradient ``g``, for ``x`` and ``g`` ``(B,
+    C, T)`` and ``alpha`` ``(1, C, 1)``. ``gx = g + (((g r) (2 s)) cos(alpha
+    x)) alpha`` in eager's own product order, and ``g_alpha = sum g_t x -
+    r^2 sum g s^2`` over batch and time, with ``s = sin(alpha x)``, ``r = 1 /
+    (alpha + 1e-9)`` and ``g_t`` the product before ``alpha``. Returns
+    ``(gx, g_alpha)``, the second shaped as ``alpha``."""
+    t = alpha * x
+    s = torch.sin(t)
+    r = 1.0 / (alpha + 1e-9)
+    g_t = g * r * (2.0 * s) * torch.cos(t)
+    sums = (g_t * x).sum(dim=(0, 2), keepdim=True), (g * (s * s)).sum(dim=(0, 2), keepdim=True)
+    return g + g_t * alpha, (sums[0] - r * r * sums[1]).reshape(alpha.shape)
+
+
+class SnakePlan(NamedTuple):
+    """Kernel G's launch: blocks of ``threads`` threads, a warp to each
+    ``segment`` elements of a row, ``n_seg`` warps a row, ``blocks``
+    blocks."""
+    threads: int
+    segment: int
+    n_seg: int
+    blocks: int
+
+
+def snake_plan(rows: int, T: int) -> SnakePlan:
+    """Kernel G's launch for ``rows`` rows ``(b, c)`` of ``T`` samples, with
+    the geometry its build takes (``_build.DEFINES``): a warp's segment is
+    32 lanes of ``SNAKE_UNROLL`` 16-byte loads."""
+    g = _build.DEFINES["snake"]
+    segment = 32 * 4 * g["SNAKE_UNROLL"]
+    n_seg = -(-T // segment)
+    return SnakePlan(g["SNAKE_THREADS"], segment, n_seg,
+                     -(-rows * n_seg // (g["SNAKE_THREADS"] // 32)))
+
+
+def _check_snake(x, alpha, *more):
+    if x.ndim != 3 or alpha.numel() != x.shape[1] or any(t.shape != x.shape for t in more):
+        raise ValueError(f"expected x (B, C, T), alpha of C values and gradients shaped as x, "
+                         f"got {tuple(x.shape)}, {tuple(alpha.shape)}, "
+                         f"{[tuple(t.shape) for t in more]}")
+    if any(t.dtype != torch.float32 for t in (x, alpha, *more)):
+        raise TypeError(f"expected float32, got {[t.dtype for t in (x, alpha, *more)]}")
+
+
+class _Snake(torch.autograd.Function):
+    """Kernel G under autograd: the forward (contiguous ``x``) saves ``x``
+    and ``alpha`` alone, the backward is G's backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.save_for_backward(x, alpha)
+        B, C, T = x.shape
+        y = torch.empty_like(x)
+        if x.numel():
+            alpha = alpha.reshape(C).contiguous()
+            plan = snake_plan(B * C, T)
+            _launch("snake", (x, alpha, y), x.data_ptr(), alpha.data_ptr(), y.data_ptr(), B, C,
+                    T, plan.n_seg, plan.blocks)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, alpha = ctx.saved_tensors
+        return snake_backward(x, alpha, g.contiguous())
+
+
+def _snake_work(x, alpha):
+    """5 operations an element (alpha x, the sine, its square, the scale by
+    r, the sum); x read and y written once, alpha read once."""
+    return {"flops": 5.0 * x.numel(), "bytes": 4.0 * (2 * x.numel() + alpha.numel())}
+
+
+def _snake_backward_work(x, alpha, g):
+    """13 operations an element (alpha x, its sine and cosine, six products
+    and a sum for x's gradient, two products and two sums for alpha's); x
+    and g read and x's gradient written once, alpha read and its gradient
+    written once, and each warp segment's two partial sums written and read
+    once."""
+    B, C, T = x.shape
+    partials = 2 * B * C * snake_plan(B * C, T).n_seg
+    return {"flops": 13.0 * x.numel(),
+            "bytes": 4.0 * (3 * x.numel() + 2 * alpha.numel() + 2 * partials)}
+
+
+@counts_as(_snake_work)
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake ``x + sin^2(alpha x) / (alpha + 1e-9)`` of float32 ``x`` ``(B,
+    C, T)`` with one ``alpha`` a channel (``(1, C, 1)``), differentiable in
+    both (``csrc/snake.cu``: one launch forward, one call of two launches
+    backward, which needs only ``x`` and ``alpha``). On the card the result
+    equals ``snake_plain``'s bit for bit."""
+    if x.device.type == "cpu":
+        return snake_plain(x, alpha)
+    _check_snake(x, alpha)
+    return _Snake.apply(x.contiguous(), alpha)
+
+
+@counts_as(_snake_backward_work)
+def snake_backward(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor):
+    """Kernel G's backward: ``(gx, g_alpha)``, the gradients of ``snake(x,
+    alpha)`` for its output's gradient ``g``, as ``snake_backward_plain``
+    computes them; ``g_alpha`` is summed over batch and time in a fixed
+    order (per-segment fp32 partial sums, then fp64 over segments), so two
+    runs give the same bits."""
+    if x.device.type == "cpu":
+        return snake_backward_plain(x, alpha, g)
+    _refuse_grad("snake_backward", x, alpha, g)
+    _check_snake(x, alpha, g)
+    B, C, T = x.shape
+    gx = torch.empty_like(x)
+    g_alpha = torch.empty(C, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return gx, g_alpha.zero_().reshape(alpha.shape)
+    alpha_c = alpha.reshape(C).contiguous()
+    plan = snake_plan(B * C, T)
+    partial = torch.empty(2, C, B * plan.n_seg, dtype=torch.float32, device=x.device)
+    _launch("snake_backward", (x, alpha_c, g, gx, partial, g_alpha), x.data_ptr(),
+            alpha_c.data_ptr(), g.data_ptr(), gx.data_ptr(), partial.data_ptr(),
+            g_alpha.data_ptr(), B, C, T, plan.n_seg, plan.blocks)
+    return gx, g_alpha.reshape(alpha.shape)

@@ -26,8 +26,12 @@ runs, on card 0:
    fp32 and fp64, against its plain version, the loop of one ``addmm`` a
    block that it replaced, and one exact meter call of 128 rows through
    each: host time to enqueue, device time and device operations; then
-   kernel D's own path, its public entry point ``rotation_cumprod`` (no
-   library path calls it), with its launches counted;
+   kernel G (DAC's Snake) forward and backward at the codec decoder's last
+   Snake at 30 s, the training cell's first and its deepest, against the
+   eager expression and autograd's backward of it, with the memory autograd
+   keeps for one Snake under each; then kernel D's own path, its public
+   entry point ``rotation_cumprod`` (no library path calls it), with its
+   launches counted;
 5. three paths on a staged batch of 64 clips of 5 s at 44.1 kHz
    (AudioDataset -> DataLoader -> Compose(RoomImpulseResponse,
    BackgroundNoise, Equalizer, VolumeNorm) -> pitch_shift(+2 st) -> mel-80
@@ -95,7 +99,8 @@ runs, on card 0:
    entry points on the CPU (codes, audio beside the card's float64 decode,
    scores, PESQ's delays and STOI's retained frames) and against the
    float64 host STOI and native PESQ, on the reconstructions and on a
-   20 dB-SNR control pair. This path runs none of the five kernels;
+   20 dB-SNR control pair. This path runs kernel G (the DAC's Snakes)
+   alone;
 13. the training loop: ``python -m audiotools_tpu_torch.examples.train_dac``'s
    ``main`` at ``DAC()`` + ``Discriminator()`` full width, batch 16 x 16,384
    samples from the fixture tree (``AudioDataset`` over 4 loader workers,
@@ -111,7 +116,8 @@ runs, on card 0:
    seconds, peak memory in fp32 and bf16, and one more step of the fp32
    and the bf16 loop under ``torch.profiler`` (device idle share, the
    kernels that take the most time). This path runs none of the five
-   ported TPU kernels; its exact meters (``VolumeNorm``) launch kernel F.
+   ported TPU kernels; its exact meters (``VolumeNorm``) launch kernel F,
+   its fp32 DAC's Snakes kernel G.
 14. host I/O and codecs: the native WAV, FLAC and libav libraries built
    with g++ from ``audiotools_tpu_torch/native`` (seconds each), the system
    codec libraries present (mp3, vorbis, vorbis-encode, gsm, av, and the
@@ -142,7 +148,8 @@ runs, on card 0:
    and NCCL refuses two ranks on one card). This path runs none of the
    five kernels;
 16. the codec example: ``python -m audiotools_tpu_torch.examples.codec
-   --toy`` compress then decompress on the card. No kernel launches;
+   --toy`` compress then decompress on the card. Kernel G (the Snakes)
+   alone launches;
 17. model-parallel training at full width: phase 8's ``DAC()`` and
    ``Discriminator()`` (the same seeded weights) through ``models.train.
    shard_params`` on a ``{"dp": 1, "tp": 1}`` mesh at world size 1 under
@@ -153,8 +160,8 @@ runs, on card 0:
    sharded against unsharded from the same weights (losses, the parameters
    after the update, within ``TRAIN_TOL``); the sharded state of both
    models and both optimizers through ``Checkpointer``, restored into fresh
-   sharded models bit for bit with its placements. This path runs none of
-   the five kernels. The multi-rank (dp, tp) path runs on the CPU tests and
+   sharded models bit for bit with its placements. This path runs kernel G
+   (the Snakes) alone. The multi-rank (dp, tp) path runs on the CPU tests and
    across cards in ``tests/test_torch_cuda.py``;
 18. accounting (``ops.perf``, ``ops.benchmark``): each kernel at its
    main-path shape timed by ``device_time`` (CUDA events, 10 then 20
@@ -868,6 +875,96 @@ def phase_kernel_f(dev):
     expect(meter["kernel F"]["f_launches"] == 1 and meter["addmm loop"]["f_launches"] == 0,
            f"exact meter call: kernel F launches {meter}")
     return results, meter
+
+
+# kernel G's shapes: the codec decoder's last Snake at 30 s (the largest a
+# round trip runs), the training cell's first (18 x 64 x 16,896) and its
+# deepest (18 x 1536 x 33 frames)
+SNAKE_SHAPES = {"codec": (1, 96, 1_323_008), "training": (18, 64, 16_896),
+                "training_deep": (18, 1536, 33)}
+
+
+def snake_main_case(dev, shape, seed=12):
+    """Kernel G's input at ``shape``: activations of 2 RMS, one positive
+    alpha a channel around 1 (DAC initializes them at 1), a gradient."""
+    rng = np.random.RandomState(seed)
+    B, C, T = shape
+    x = torch.from_numpy((rng.randn(B, C, T) * 2.0).astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(np.exp(rng.randn(1, C, 1) * 0.5).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(B, C, T).astype(np.float32)).to(dev)
+    return x, alpha, g
+
+
+def phase_kernel_g(dev):
+    """Kernel G (DAC's Snake) at the codec's and the training cell's shapes.
+    Forward: against the eager expression (its plain version, also the
+    yardstick: eager is what the port ran), bit for bit. Backward: against
+    autograd's backward of the expression, its forward excluded (x's
+    gradient within a few ulp, alpha's relative to its largest value), and
+    two runs bit-equal. Each timed by CUDA events beside its byte bound,
+    and the device memory autograd keeps for one Snake under each."""
+    from audiotools_tpu_torch.ops import hopper_kernels as HK
+
+    results = {}
+    eps = torch.finfo(torch.float32).eps
+    for label, shape in SNAKE_SHAPES.items():
+        x, alpha, g = snake_main_case(dev, shape)
+        abs_err, _, ms, plain_ms = compare_kernel(
+            "snake", lambda: HK.snake(x, alpha), lambda: HK.snake_plain(x, alpha), 20, 5)
+        expect(abs_err == 0.0, f"kernel G's forward is not the expression's bits ({label}: "
+                               f"max_abs_err {abs_err:.3e})")
+        work = HK.snake.work(x, alpha)
+        yard = yardsticks(ms, work["flops"], FP32_FLOPS, work["bytes"],
+                          "none: eager's five kernels are its plain version")
+
+        xe, ae = x.clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+        ye = HK.snake_plain(xe, ae)
+        want = torch.autograd.grad(ye, (xe, ae), g, retain_graph=True)
+        got = HK.snake_backward(x, alpha, g)
+        again = HK.snake_backward(x, alpha, g)
+        torch.cuda.synchronize()
+        size = g.abs() + (want[0] - g).abs()
+        gx_abs = float((got[0] - want[0]).abs().max())
+        gx_ulp = float(((got[0] - want[0]).abs() / (eps * size).clamp_min(1e-30)).max())
+        ga_rel = float((got[1] - want[1]).abs().max() / want[1].abs().max())
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        expect(gx_ulp <= 4 and ga_rel < 1e-5 and same,
+               f"kernel G's backward ({label}): gx {gx_ulp:.2f} ulp, g_alpha rel {ga_rel:.3e}, "
+               f"repeatable {same}")
+        eager_bwd = lambda: torch.autograd.grad(ye, (xe, ae), g, retain_graph=True)  # noqa: E731
+        b_plain1 = time_ms(eager_bwd, 5)
+        b_ms1 = time_ms(lambda: HK.snake_backward(x, alpha, g), 20)
+        b_ms2 = time_ms(lambda: HK.snake_backward(x, alpha, g), 20)
+        b_plain2 = time_ms(eager_bwd, 5)
+        b_ms, b_plain = (b_ms1 + b_ms2) / 2, (b_plain1 + b_plain2) / 2
+        b_work = HK.snake_backward.work(x, alpha, g)
+        b_yard = yardsticks(b_ms, b_work["flops"], FP32_FLOPS, b_work["bytes"],
+                            "none: autograd's backward of the eager chain is its yardstick")
+        del ye, want, got, again
+
+        saved = {}
+        for path, fn in (("kernel G", HK.snake), ("eager", HK.snake_plain)):
+            xs = x.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            y = fn(xs, ae)
+            torch.cuda.synchronize()
+            saved[path] = torch.cuda.memory_allocated() - base - y.numel() * y.element_size()
+            del y, xs
+        print(f"[kernel G] {label} {tuple(x.shape)}: forward {ms:.4f} ms (CUDA events) | "
+              f"eager chain {plain_ms:.4f} ms | bound {yard['bound_ms']:.4f} ms "
+              f"({yard['bound_by']}, {yard['share_of_bound']:.1%}) | bit-equal "
+              f"{abs_err == 0.0} || backward {b_ms:.4f} ms | eager autograd backward "
+              f"{b_plain:.4f} ms | bound {b_yard['bound_ms']:.4f} ms ({b_yard['bound_by']}, "
+              f"{b_yard['share_of_bound']:.1%}) | gx {gx_ulp:.2f} ulp, g_alpha rel "
+              f"{ga_rel:.3e}, repeatable {same} || kept for backward: kernel G "
+              f"{saved['kernel G'] / 2**20:.1f} MiB, eager {saved['eager'] / 2**20:.1f} MiB")
+        results[label] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yard)
+        results[f"{label} backward"] = dict(abs_err=gx_abs, ms=b_ms, plain_ms=b_plain,
+                                            gx_ulp=gx_ulp, g_alpha_rel=ga_rel, saved=saved,
+                                            **b_yard)
+        del x, alpha, g, xe, ae
+    return results
 
 
 def peak_increment(fn):
@@ -2201,7 +2298,7 @@ def phase_serving(root, dev, card):
     loaded back, the batch compressed and decompressed whole and streamed,
     the artifact round trip, the pairs scored; then items 0-1 on the CPU and
     through the host oracles. Launch counts are set to 0 just before and read
-    just after (this path runs none of the five kernels)."""
+    just after (this path runs kernel G, the DAC's Snakes, alone)."""
     import warnings
 
     from audiotools_tpu_torch import AudioSignal
@@ -2381,7 +2478,7 @@ def phase_serving(root, dev, card):
               f"{prof_wall:.3f} ms): {n_kernels} kernels, {busy:.3f} ms on the device, idle "
               f"{1 - busy / ms:.1%} of the unprofiled call; by device time: "
               + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in rows))
-    print(f"[launches] serving and evaluation: {launches} (none of the five kernels lies on this path)")
+    print(f"[launches] serving and evaluation: {launches} (kernel G, the DAC's Snakes, alone)")
     del model, host_model, recon, orig
     return launches, res
 
@@ -2658,7 +2755,7 @@ def phase_training_loop(root, dev, card):
           f"peak bf16 {res['bf16']['peak'] / 2**30:.3f} against fp32 {a['peak'] / 2**30:.3f} GiB "
           f"| phase {time.perf_counter() - t_phase:.1f} s | {card}")
     print(f"[launches] training loop: {launches} (none of the TPU kernels' ports lies on this "
-          f"path; its exact meters launch kernel F)")
+          f"path; its exact meters launch kernel F, its fp32 Snakes kernel G)")
     return launches, res
 
 
@@ -3053,8 +3150,8 @@ def phase_long_signal(root, dev, card):
 
 def phase_codec_example(root):
     """``examples/codec.py --toy`` compress and decompress on the card.
-    Launch counts are set to 0 just before and read just after (none of the
-    five kernels lies on this path)."""
+    Launch counts are set to 0 just before and read just after (the DAC's
+    Snakes launch kernel G; no other kernel lies on this path)."""
     from audiotools_tpu_torch.examples import codec
     from audiotools_tpu_torch.ops import hopper_kernels as HK
 
@@ -3078,8 +3175,9 @@ def phase_codec_example(root):
           f"{sr} Hz on {recon.device} (host clock, with file I/O): {'ok' if ok else 'WRONG'}")
     expect(ok, "codec example: compress/decompress on the card")
     launches = dict(HK.LAUNCHES)
-    print(f"[launches] codec example: {launches} (none of the five kernels lies on this path)")
-    expect(not any(launches.values()), f"codec example: kernels launched {launches}")
+    print(f"[launches] codec example: {launches} (kernel G, the DAC's Snakes, alone)")
+    expect(launches["snake"] > 0 and not any(v for k, v in launches.items() if k != "snake"),
+           f"codec example: kernels launched {launches}")
     return launches
 
 
@@ -3123,7 +3221,7 @@ def phase_model_parallel(root, dev, card, audio, unsharded):
     ``unsharded`` results; one step of each against the unsharded step
     inside ``strict_fp32``; the sharded state through ``Checkpointer`` and
     back. Launch counts are set to 0 just before the timed steps and read
-    just after (none of the five kernels lies on this path)."""
+    just after (kernel G, the DAC's Snakes, alone lies on this path)."""
     import torch.distributed as dist
 
     from audiotools_tpu_torch.ml.checkpoint import Checkpointer
@@ -3256,8 +3354,10 @@ def phase_model_parallel(root, dev, card, audio, unsharded):
     finally:
         dist.destroy_process_group()
     total = {k: sum(c[k] for c in launches.values()) for k in launches["reconstruction"]}
-    print(f"[launches] model parallel: {total} (none of the five kernels lies on this path)")
-    expect(not any(total.values()), f"model parallel: kernels launched {total}")
+    print(f"[launches] model parallel: {total} (kernel G, the DAC's Snakes, alone)")
+    expect(total["snake"] > 0 and total["snake_backward"] == total["snake"] and not any(
+        v for k, v in total.items() if k not in ("snake", "snake_backward")),
+        f"model parallel: kernels launched {total}")
     return total, res
 
 
@@ -3272,7 +3372,8 @@ def main_kernel_cases(dev):
     + 640, 641 taps), B at the pitch shift's without the track, C at the
     exact-length meter's (1023 taps), D at 65,600 x 432, E at the chain's
     synthesis (64 x 432 x 1025, hop 512), F at the exact meter's stacked
-    rows (128 x 431 blocks x 4 states)."""
+    rows (128 x 431 blocks x 4 states), G forward and backward at the codec
+    decoder's last Snake (1 x 96 x 1,323,008)."""
     from audiotools_tpu_torch.ops import fft as PF
     from audiotools_tpu_torch.ops import hopper_kernels as HK
     from audiotools_tpu_torch.ops import loudness as PL
@@ -3297,6 +3398,8 @@ def main_kernel_cases(dev):
         "rotation_cumprod": (HK.rotation_cumprod, rotation_main_case(dev)),
         "istft_synthesis_fused": (HK.istft_synthesis_fused, (spec, w, 512, env)),
         "iir_block_scan": (HK.iir_block_scan, scan_main_case(dev, 2 * BATCH)),
+        "snake": (HK.snake, snake_main_case(dev, SNAKE_SHAPES["codec"])[:2]),
+        "snake_backward": (HK.snake_backward, snake_main_case(dev, SNAKE_SHAPES["codec"])),
     }
 
 
@@ -3484,6 +3587,7 @@ def main():
     d, planes = phase_kernel_d(dev)
     e, _ = phase_kernel_e(dev)
     f, _ = phase_kernel_f(dev)
+    g = phase_kernel_g(dev)
     phase_ragged(dev)
     launches = {"rotation": phase_rotation(planes)}
     del planes
@@ -3555,6 +3659,11 @@ def main():
         # F replaces no Pallas kernel but the JAX package's lax.scan over block states
         row("iir_block_scan", "iir_block_scan.cu", "ops/filters.py:597 (lax.scan)",
             "main+original_phase", f, "meter_stacked"),
+        # G replaces no Pallas kernel but the eager Snake (XLA fuses the JAX one)
+        row("snake", "snake.cu", "models/dac.py:27 (snake)", "reconstruction+adversarial", g,
+            "codec"),
+        row("snake_backward", "snake.cu", "models/dac.py:27 (snake)",
+            "reconstruction+adversarial", g, "codec backward"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -564,6 +564,115 @@ def test_kernels_without_backward_raise_on_grad(cuda, name):
     assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))
 
 
+# -- G: DAC's Snake, forward and backward ---------------------------------------
+
+# (B, C, T) and the input's storage offset in floats: the codec decoder's
+# last Snake at 30 s, the training cell's first, an odd T whose rows start
+# at every alignment, and an input 4 bytes past a 16-byte boundary (its
+# output is aligned: the kernel's one-element-a-lane path)
+SNAKE_CASES = {"codec": ((1, 96, 1_323_008), 0), "training": ((18, 64, 16_896), 0),
+               "odd_T": ((3, 5, 1031), 0), "offset": ((2, 3, 4099), 1)}
+# x's gradient against eager autograd's, in ulp of its two addends' sizes
+# (the same product chain; sincosf against sinf and cosf), and alpha's
+# against eager's fp32 reductions, relative to its largest value
+SNAKE_GX_ULP = 4
+SNAKE_GALPHA_RTOL = 1e-5
+
+
+def _snake_case(cuda, label, seed=0):
+    (B, C, T), offset = SNAKE_CASES[label]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(offset + B * C * T, device=cuda, generator=gen) * 2.0)[offset:].view(B, C, T)
+    alpha = torch.exp(torch.randn(1, C, 1, device=cuda, generator=gen) * 0.5)
+    g = torch.randn(B, C, T, device=cuda, generator=gen)
+    return x, alpha, g
+
+
+@pytest.mark.parametrize("label", sorted(SNAKE_CASES))
+def test_snake_forward_is_the_expression_bit_for_bit(cuda, label):
+    """G's forward equals the eager expression bit for bit, one launch."""
+    from audiotools_tpu_torch.models import dac as PD
+
+    x, alpha, _ = _snake_case(cuda, label)
+    before = HK.LAUNCHES["snake"]
+    with torch.no_grad():
+        got = PD.snake(x, alpha)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["snake"] == before + 1
+    assert torch.equal(got, HK.snake_plain(x, alpha))
+
+
+@pytest.mark.parametrize("label", sorted(SNAKE_CASES))
+def test_snake_backward_matches_eager_autograd(cuda, label):
+    """Under autograd G runs one forward and one backward call; x's gradient
+    is within a few ulp of eager autograd's, alpha's within 1e-5."""
+    x, alpha, g = _snake_case(cuda, label)
+    xk, ak = x.detach().requires_grad_(True), alpha.clone().requires_grad_(True)
+    before = dict(HK.LAUNCHES)
+    HK.snake(xk, ak).backward(g)
+    torch.cuda.synchronize()
+    assert {k: HK.LAUNCHES[k] - before[k] for k in ("snake", "snake_backward")} == {
+        "snake": 1, "snake_backward": 1}
+    xe, ae = x.detach().clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+    HK.snake_plain(xe, ae).backward(g)
+    eps = torch.finfo(torch.float32).eps
+    size = g.abs() + (xe.grad - g).abs()
+    assert bool(((xk.grad - xe.grad).abs() <= SNAKE_GX_ULP * eps * size).all())
+    assert float((ak.grad - ae.grad).abs().max() / ae.grad.abs().max()) < SNAKE_GALPHA_RTOL
+
+
+def test_snake_backward_twice_gives_the_same_bits(cuda):
+    """alpha's gradient is reduced in a fixed order, without atomics."""
+    x, alpha, g = _snake_case(cuda, "training", seed=1)
+    first, second = HK.snake_backward(x, alpha, g), HK.snake_backward(x, alpha, g)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_snake_off_fp32_on_card_runs_the_expression(cuda):
+    """bf16 and fp64 on the card keep eager's expression: G does not launch."""
+    from audiotools_tpu_torch.models import dac as PD
+
+    x, alpha, _ = _snake_case(cuda, "odd_T")
+    before = dict(HK.LAUNCHES)
+    for dtype in (torch.bfloat16, torch.float64):
+        xd, ad = x.to(dtype), alpha.to(dtype)
+        assert torch.equal(PD.snake(xd, ad), xd + (1.0 / (ad + 1e-9)) * torch.sin(ad * xd) ** 2)
+    assert HK.LAUNCHES == before
+
+
+def test_snake_launches_in_a_codec_round_trip_and_a_training_step(cuda):
+    """The default DAC has 29 Snakes in its encoder and 29 in its decoder:
+    a round trip launches G's forward 58 times and its backward never; one
+    adversarial step launches each 58 times."""
+    from audiotools_tpu_torch.examples.train_dac import TOY_DISC, adamw
+    from audiotools_tpu_torch.models import DAC, Discriminator, compress, decompress
+    from audiotools_tpu_torch.models.adversarial import make_adversarial_train_step
+    from audiotools_tpu_torch.models.dac import Snake
+
+    model = DAC().to(cuda)
+    assert [sum(isinstance(m, Snake) for m in part.modules())
+            for part in (model.encoder, model.decoder)] == [29, 29]
+    rng = np.random.RandomState(3)
+    before = dict(HK.LAUNCHES)
+    art = compress(model, (rng.randn(1, 1, 44_100) * 0.1).astype(np.float32))
+    encoded = dict(HK.LAUNCHES)
+    decompress(model, art)
+    torch.cuda.synchronize()
+    assert [encoded["snake"] - before["snake"], HK.LAUNCHES["snake"] - encoded["snake"],
+            HK.LAUNCHES["snake_backward"] - before["snake_backward"]] == [29, 29, 0]
+
+    disc = Discriminator(**TOY_DISC, seed=1).to(cuda)
+    step = make_adversarial_train_step(model, disc, adamw(model, 1e-4), adamw(disc, 1e-4), 44_100)
+    audio = torch.from_numpy((rng.randn(2, 1, 16_896) * 0.1).astype(np.float32)).to(cuda)
+    with strict_fp32():
+        before = dict(HK.LAUNCHES)
+        metrics = step(audio)
+        torch.cuda.synchronize()
+    assert {k: HK.LAUNCHES[k] - before[k] for k in ("snake", "snake_backward")} == {
+        "snake": 58, "snake_backward": 58}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
 # -- the augmentation zoo: each transform on the card against the CPU --------
 
 ZOO_SOURCES = {"BackgroundNoise": "nz.csv", "CrossTalk": "spk.csv",

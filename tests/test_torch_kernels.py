@@ -177,10 +177,12 @@ def test_cpu_tensors_run_the_plain_versions_without_counting_launches():
     w = HK.synthesis_weights(torch.zeros(33, 64), torch.zeros(33, 64), 16)
     HK.istft_synthesis_fused(torch.zeros(1, 3, 33, dtype=torch.complex64), w, 16, env)
     HK.iir_block_scan(torch.zeros(2, 5, 4), torch.zeros(4, 4))
+    HK.snake(torch.zeros(2, 3, 7), torch.ones(1, 3, 1))
+    HK.snake_backward(torch.zeros(2, 3, 7), torch.ones(1, 3, 1), torch.zeros(2, 3, 7))
     assert HK.LAUNCHES == dict.fromkeys(HK.LAUNCHES, 0)
     assert sorted(HK.LAUNCHES) == sorted(["fir_causal_batch", "phase_vocoder_fused", "fir_causal",
                                           "rotation_cumprod", "istft_synthesis_fused",
-                                          "iir_block_scan"])
+                                          "iir_block_scan", "snake", "snake_backward"])
 
 
 def _no_plain(monkeypatch):

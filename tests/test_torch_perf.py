@@ -224,6 +224,9 @@ def _kernel_cases():
                                   (spec, w, hop, env, 2), {}),
         "iir_block_scan": (HK.iir_block_scan, HK.iir_block_scan_plain,
                            (randn(3, 20, 4), randn(4, 4, scale=0.3)), {}),
+        "snake": (HK.snake, HK.snake_plain, (randn(2, 3, 37), randn(1, 3, 1) ** 2), {}),
+        "snake_backward": (HK.snake_backward, HK.snake_backward_plain,
+                           (randn(2, 3, 37), randn(1, 3, 1) ** 2, randn(2, 3, 37)), {}),
     }
 
 
@@ -263,6 +266,10 @@ def test_kernel_work_is_the_bound_of_the_main_path_shapes():
     u = torch.empty(128, 431, 4, **meta)
     assert HK.iir_block_scan.work(u, torch.empty(4, 4, **meta)) == {
         "flops": 2.0 * 128 * 430 * 4 * 4, "bytes": 4.0 * (2 * 128 * 431 * 4 + 16)}
+    # G at the decoder's last Snake of a 30 s codec request
+    x, alpha = torch.empty(1, 96, 1_323_008, **meta), torch.empty(1, 96, 1, **meta)
+    assert HK.snake.work(x, alpha) == {"flops": 5.0 * 96 * 1_323_008,
+                                       "bytes": 4.0 * (2 * 96 * 1_323_008 + 96)}
 
 
 # ---------------------------------------------------------------------------

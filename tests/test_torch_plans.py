@@ -1,4 +1,4 @@
-"""The launch plans of kernels B, D and F, on the CPU: the host-side
+"""The launch plans of kernels B, D, F and G, on the CPU: the host-side
 arithmetic that sizes their blocks and rings (``hopper_kernels.pv_plan``,
 ``rotation_plan``, ``scan_plan``) from the geometry their builds take
 (``_build.DEFINES``), kernel B's frame ring and kernel F's input ring
@@ -64,7 +64,8 @@ def test_geometry_has_one_owner(source, monkeypatch):
         assert re.search(rf"constexpr int \w+ = {macro};", text)
     plan = {"phase_vocoder": lambda: HK.pv_plan(MAIN_ROWS),
             "rotation_cumprod": lambda: HK.rotation_plan(MAIN_ROWS, 432),
-            "iir_block_scan": lambda: HK.scan_plan(128, 4, 4)}[source]
+            "iir_block_scan": lambda: HK.scan_plan(128, 4, 4),
+            "snake": lambda: HK.snake_plan(18 * 64, 16_896)}[source]
     first = plan()
     macro = next(iter(_build.DEFINES[source]))
     monkeypatch.setitem(_build.DEFINES, source, {**_build.DEFINES[source], macro: 64})
