@@ -1,8 +1,8 @@
 """Shapes that do not fill the tiles of the Hopper kernels, and kernel
 F's tolerances.
 
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold each kernel against
-its plain version at these shapes; both read these lists and tolerances.
+``tests/test_torch_cuda.py`` holds each kernel against its plain version at
+these shapes and tolerances.
 """
 import numpy as np
 import torch
@@ -15,8 +15,8 @@ from .stretch import _pv_indices
 # not a multiple of the chunk, one row, and each kernel's tap limit.
 FIR_BATCH = [(1, 100, 1), (1, 3, 5), (3, 4097, 17), (2, 8193, 15), (2, 8193, 16),
              (1, 4095, 2048), (5, 777, 2048), (4, 4096, 33),
-             # the multitrack path's EQs (chip_smoke.py): 64 clips of 5 s time-
-             # stretched by 1.25 and 0.8 (176,400 and 275,625 samples), 6 bands
+             # the multitrack path's EQs: 64 clips of 5 s time-stretched by
+             # 1.25 and 0.8 (176,400 and 275,625 samples), 6 bands
              (64, 176_400 + 640, 641), (64, 275_625 + 640, 641)]
 FIR_SHARED = [(1, 100, 1), (1, 3, 5), (3, 4097, 17), (2, 8193, 15), (5, 4099, 31),
               (4, 4096, 33), (130, 2048, 33), (1, 12345, 8191), (2, 9000, 8192)]
@@ -41,7 +41,7 @@ PV = [((2, 1025, 20), 2 ** (-2 / 12)), ((1, 1, 7), 0.77), ((3, 1, 3), 1.31), ((2
       ((1, 300, 19), 1.31), ((4, 33, 50), 0.77), ((1, 1025, 3), 2 ** (-2 / 12)),
       ((33, 1025, 10), 1.31), ((33, 1025, 30), 0.77), ((2, 7, 40), None), ((1, 129, 5), None)]
 
-# Kernel B at the multitrack path's time stretches (chip_smoke.py): 64 clips
+# Kernel B at the multitrack path's time stretches: 64 clips
 # of 5 s at 44.1 kHz, 431 frames of 1025 bins (65,600 rows, 128 blocks and a
 # ragged one), stretched by 1.25 and 0.8 to 345 and 539 steps, neither a
 # multiple of the prefetch depth: (spectrum shape, rate).

@@ -41,6 +41,25 @@ def _noise(seed, shape, scale=0.2):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_libraries(tmp_path_factory):
+    """The JAX package's WAV, FLAC and libav libraries built for this module
+    alone, from the package's sources with its flags. The package builds
+    each into its own directory at first use; there another test process
+    may still be writing the file while this one loads it, and a library
+    that failed to load stays unloaded for the life of the process."""
+    root = tmp_path_factory.mktemp("jax_native")
+    with pytest.MonkeyPatch.context() as mp:
+        for lib, path, tried in (("_lib", "_LIB_PATH", "_tried"),
+                                 ("_flac_lib", "_FLAC_LIB_PATH", "_flac_tried"),
+                                 ("_av_lib", "_AV_LIB_PATH", "_av_tried")):
+            mp.setattr(jnative, path, root / getattr(jnative, path).name)
+            mp.setattr(jnative, lib, None)
+            mp.setattr(jnative, tried, False)
+        assert jnative.available() and jnative.flac_available()
+        yield
+
+
 @pytest.fixture(scope="module")
 def wavs(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_native")

@@ -6,9 +6,9 @@ tests/test_torch_slice.py holds them) and then gives the same output, with
 a mask that mixes applied and untouched items. The framework (``Choose``'s
 one-hot masks, ``Repeat``, ``RepeatUpTo``, ``Compose.filter``,
 ``apply_mask``, ``batch_instantiate``, ``Identity``, ``SpectralTransform``)
-is held to the JAX package's the same way, and the whole zoo chain of
-``chip_smoke.py`` runs through both datasets and is compared transform by
-transform on the same input.
+is held to the JAX package's the same way, and the whole zoo chain (the
+card tests' ``make_zoo_dataset``) runs through both datasets and is
+compared transform by transform on the same input.
 
 Tolerance: 1e-6 absolute on the audio, the JAX package's pin for applying
 a transform (tests/data/test_transforms.py:68,146). A transform that meters
@@ -280,7 +280,7 @@ def test_identity_and_spectral_transform_match_jax():
 
 
 def zoo(m, root):
-    """The zoo chain of chip_smoke.py over the fixture sources."""
+    """The zoo chain of the card tests over the fixture sources."""
     return m.Compose(
         m.RoomImpulseResponse(sources=[str(root / "ir.csv")]),
         m.BackgroundNoise(sources=[str(root / "nz.csv")]),
