@@ -6,8 +6,11 @@ in fp32. ``"matmul"`` evaluates the DFTs as matmuls against window-fused
 real-DFT matrices designed on the host in float64 (the same numpy designs
 as the JAX package), in full fp32. ``"matmul_bf16"`` rounds the operands
 (frames or spectrum, and the matrices) to bf16 and sums the product in
-fp32, as a bf16 matrix unit computes it, in both directions. The synthesis
-also takes ``"matmul_bf16_fused"``, the same numerics through kernel E
+fp32, as a bf16 matrix unit computes it, in both directions. On the card
+the bf16 synthesis is one tensor-core product of the bf16 operands with
+fp32 sums and an fp32 result, unless autograd records through it
+(``BF16_SYNTHESIS_GEMMS`` counts those products). The synthesis also
+takes ``"matmul_bf16_fused"``, the same numerics through kernel E
 (``hopper_kernels.istft_synthesis_fused``), which never builds the frame
 tensor, and ``"matmul_bf16_fused_interpret"``, the JAX package's name for
 the kernel off its hardware, which runs E's plain version.
@@ -38,6 +41,9 @@ __all__ = [
 
 
 _STFT_METHODS = ("fft", "matmul", "matmul_bf16")
+
+# calls of istft(method="matmul_bf16") that took the tensor-core product
+BF16_SYNTHESIS_GEMMS = 0
 
 
 def default_win_length(sample_rate: int) -> int:
@@ -222,6 +228,43 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def _bf16_synthesis_design(window_type: str, n_fft: int):
+    """The window-fused iDFT matrices rounded to bf16 and interleaved as
+    ``view_as_real`` lays out a spectrum's bins: row ``2k`` is ``Ci[k]``,
+    row ``2k + 1`` is ``Si[k]``, then zero rows up to a multiple of 8 (rows
+    of 16 bytes, which the tensor-core kernels take)."""
+    Ci, Si = _idft_matrices(window_type, n_fft)
+    n_freq = Ci.shape[0]
+    w = torch.zeros(-(-2 * n_freq // 8) * 8, n_fft, dtype=torch.bfloat16)
+    w[: 2 * n_freq].view(n_freq, 2, n_fft).copy_(torch.from_numpy(np.stack([Ci, Si], axis=1)))
+    return (w,)
+
+
+def _bf16_synthesis_operand(S: torch.Tensor, edge: int, rows: int) -> torch.Tensor:
+    """The spectrum ``(B, nt, n_freq)`` rounded to bf16 in one pass, as
+    ``(B * (nt + 2 * edge), rows)``: re and im interleaved (``view_as_real``),
+    ``edge`` zero frames at each end and zero columns up to ``rows``."""
+    B, nt, n_freq = S.shape
+    a = S.new_zeros((B, nt + 2 * edge, rows), dtype=torch.bfloat16)
+    a[:, edge : edge + nt, : 2 * n_freq].unflatten(-1, (n_freq, 2)).copy_(torch.view_as_real(S))
+    return a.view(-1, rows)
+
+
+def _bf16_synthesis_gemm(S: torch.Tensor, window_type: str, n_fft: int,
+                         edge: int) -> torch.Tensor:
+    """The ``matmul_bf16`` frames of a card spectrum ``(B, nt, n_freq)``
+    as one bf16 tensor-core product with fp32 sums and an fp32 result: the
+    interleaved operand times the interleaved weights. The products of bf16
+    values are exact in fp32, so this is the emulated product of
+    :func:`istft` summed in another order. Returns ``(B, nt + 2 * edge,
+    n_fft)`` float32, the window applied."""
+    global BF16_SYNTHESIS_GEMMS
+    (w,) = _on_device(_bf16_synthesis_design, (window_type, n_fft), S.device)
+    a = _bf16_synthesis_operand(S, edge, w.shape[0])
+    BF16_SYNTHESIS_GEMMS += 1
+    return torch.mm(a, w, out_dtype=torch.float32).view(S.shape[0], -1, n_fft)
+
+
 def _synthesis_design(window_type: str, n_fft: int, hop_length: int):
     """Kernel E's bf16 weights for the window-fused iDFT matrices."""
     Ci, Si = _idft_matrices(window_type, n_fft)
@@ -251,7 +294,9 @@ def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
 
     ``method``: ``"fft"`` (``irfft`` then the window) and ``"matmul"`` are
     fp32; ``"matmul_bf16"`` rounds the spectrum and the iDFT matrices to
-    bf16 and accumulates in fp32; ``"matmul_bf16_fused"`` computes the same
+    bf16 and accumulates in fp32 (one tensor-core product for a card
+    spectrum that autograd does not record through, else two fp32 products
+    of the rounded values); ``"matmul_bf16_fused"`` computes the same
     in one pass of kernel E when the hop divides the window into at most 8
     parts, and is ``"matmul_bf16"`` otherwise (the JAX package's rule);
     ``"matmul_bf16_fused_interpret"`` follows the same rule with E's plain
@@ -288,6 +333,11 @@ def istft(stft_data: torch.Tensor, window_length: int, hop_length: int,
             y = synthesis(S, w, hop_length, inv_env, edge)
             return _istft_trim(y, *trim)
         method = "matmul_bf16"
+    if (method == "matmul_bf16" and S.is_cuda
+            and not (torch.is_grad_enabled() and S.requires_grad)):
+        frames = _bf16_synthesis_gemm(S, window_type, window_length, edge)
+        y = _overlap_add(frames, hop_length, out_len) * inv_env
+        return _istft_trim(y, *trim)
     if edge:
         S = F.pad(S, (0, 0, edge, edge))
 

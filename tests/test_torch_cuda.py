@@ -15,6 +15,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 torch.set_num_threads(1)  # the workers of a parallel test run share the host's cores
 
 from audiotools_tpu_torch.ops import fft as PF
@@ -548,13 +549,23 @@ CHAINS = {"main": (False, False, "matmul_bf16"), "parity": (False, True, "matmul
 # a batch of each launches A for the reverb's, the noise's and Equalizer's
 # EQs and B for the vocoder; it meters three times (the mix's stacked signal
 # and noise, VolumeNorm, the features' loudness), each through F with the
-# exact meter or through C with the FIR meter; E is the fused synthesis
+# exact meter or through C with the FIR meter; the pitch shift's synthesis
+# is E (fused) or the bf16 tensor-core product (the reverb's own iSTFT of
+# the original-phase chain is the fp32 "fft" one)
 CHAIN_LAUNCHES = {
-    "main": {"fir_causal_batch": 3, "phase_vocoder_fused": 1, "iir_block_scan": 3},
+    "main": {"fir_causal_batch": 3, "phase_vocoder_fused": 1, "iir_block_scan": 3,
+             "bf16_synthesis_gemm": 1},
     "parity": {"fir_causal_batch": 3, "phase_vocoder_fused": 1, "fir_causal": 3,
                "istft_synthesis_fused": 1},
-    "original_phase": {"fir_causal_batch": 3, "phase_vocoder_fused": 1, "iir_block_scan": 3},
+    "original_phase": {"fir_causal_batch": 3, "phase_vocoder_fused": 1, "iir_block_scan": 3,
+                       "bf16_synthesis_gemm": 1},
 }
+
+
+def _launches():
+    """The kernels' launch counts and the bf16 synthesis's tensor-core
+    products (``fft.BF16_SYNTHESIS_GEMMS``), by name."""
+    return {**HK.LAUNCHES, "bf16_synthesis_gemm": PF.BF16_SYNTHESIS_GEMMS}
 
 
 @pytest.mark.parametrize("chain", sorted(CHAINS))
@@ -562,9 +573,9 @@ def test_chain_batch_launches_the_block_scan_once_a_meter_call(cuda, zoo_sources
     """One batch of 8 clips of 5 s of each of the benchmark's chains,
     staged to the card by ``DataLoader``: each kernel launched as often as
     ``CHAIN_LAUNCHES`` says and every other never (with the FIR meter F is
-    never launched), outputs of the batch's shapes, finite, and loudness
-    between -40 and -10 LUFS. The original-phase chain's dataset draws the
-    main chain's clips."""
+    never launched; with E the bf16 tensor-core product never runs),
+    outputs of the batch's shapes, finite, and loudness between -40 and -10
+    LUFS. The original-phase chain's dataset draws the main chain's clips."""
     from audiotools_tpu_torch.data import DataLoader
 
     original_phase, fast, method = CHAINS[chain]
@@ -575,11 +586,12 @@ def test_chain_batch_launches_the_block_scan_once_a_meter_call(cuda, zoo_sources
         main = next(iter(DataLoader(make_dataset(zoo_sources, 8), batch_size=8, num_workers=0)))
         assert torch.equal(batch["signal"].audio_data, main["signal"].audio_data)
     with meter(fast):
-        before = dict(HK.LAUNCHES)
+        before = _launches()
         audio, mel, lufs = run_chain(ds, batch, method)
         torch.cuda.synchronize()
-    want = {**dict.fromkeys(HK.LAUNCHES, 0), **CHAIN_LAUNCHES[chain]}
-    assert {k: HK.LAUNCHES[k] - before[k] for k in want} == want
+    after = _launches()
+    want = {**dict.fromkeys(after, 0), **CHAIN_LAUNCHES[chain]}
+    assert {k: after[k] - before[k] for k in want} == want
     assert audio.shape == (8, 1, 220_500) and lufs.shape == (8,)
     assert mel.shape == (8, 1, 80, 1 + 220_500 // 512)
     assert all(bool(torch.isfinite(t).all()) for t in (audio, mel, lufs))
@@ -711,6 +723,88 @@ def test_synthesis_kernel_ragged_tiles(cuda, B, nt, n_fft, hop):
         want = HK.istft_synthesis_fused_plain(spec, w, hop, env, edge)
         assert got.shape == want.shape
         assert _rel_err(got, want) < KERNEL_RTOL
+
+
+# -- the bf16 synthesis as one tensor-core product -----------------------------
+
+# istft(method="matmul_bf16") on the card against its two fp32 products of
+# the bf16-rounded operands, relative to the largest output. The products of
+# bf16 values are exact in fp32, and both sum them in fp32 over K = 2050 (re
+# and im of 1025 bins), in other orders: they part by the fp32 roundings of
+# the partial sums, ~sqrt(K / 2) x 2^-24 ~ 2e-6 of a frame's scale (2.6e-6
+# of the largest output at 64 x 432 x 1025 on an H100). A product with bf16
+# sums or a bf16 result would miss by ~2^-8 ~ 4e-3.
+BF16_GEMM_RTOL = 1e-5
+
+
+def two_product_bf16_istft(spec, n_fft, hop, match_stride, n):
+    """``istft(spec, n_fft, hop, "hann", match_stride, original_length=n,
+    method="matmul_bf16")`` as the module computes it off the card and under
+    a recorded gradient: the bf16-rounded spectrum and iDFT matrices as
+    fp32, two fp32 products under ``strict_fp32``, overlap-add, envelope,
+    trim."""
+    right_pad, pad = PF.compute_stft_padding(n, n_fft, hop, match_stride)
+    edge = 2 if match_stride else 0
+    S = F.pad(spec.reshape(-1, *spec.shape[-2:]).transpose(-1, -2), (0, 0, edge, edge))
+    nt = S.shape[1]
+    Ci, Si = PF._on_device(PF._idft_matrices, ("hann", n_fft), S.device)
+    (env,) = PF._on_device(PF._inverse_envelope, ("hann", n_fft, hop, nt), S.device)
+    re, im, Ci, Si = PF._bf16(S.real), PF._bf16(S.imag), PF._bf16(Ci), PF._bf16(Si)
+    with strict_fp32():
+        frames = re @ Ci + im @ Si
+    y = PF._overlap_add(frames, hop, n_fft + hop * (nt - 1)) * env
+    return PF._istft_trim(y, n_fft, n + 2 * pad + right_pad, match_stride, pad, right_pad,
+                          spec.shape[:-2])
+
+
+def _card_spectrum(seed, shape, cuda):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(((rng.randn(*shape) + 1j * rng.randn(*shape)) * 0.1)
+                            .astype(np.complex64)).to(cuda)
+
+
+@pytest.mark.parametrize("match_stride,nt", [(False, 432), (True, 431)])
+def test_bf16_synthesis_gemm_matches_the_two_fp32_products(cuda, match_stride, nt):
+    """The chain's synthesis shape, 8 x 1025 x 432 at n_fft 2048 and hop
+    512 (431 frames with match_stride's zero frames at each end): one
+    tensor-core product a call, within ``BF16_GEMM_RTOL`` of the two fp32
+    products, and the same bits from the time-major layout the vocoder
+    writes."""
+    spec = _card_spectrum(nt, (8, 1025, nt), cuda)
+    time_major = spec.transpose(-1, -2).contiguous().transpose(-1, -2)
+    kw = dict(match_stride=match_stride, original_length=220_500, method="matmul_bf16")
+    before = PF.BF16_SYNTHESIS_GEMMS
+    got = PF.istft(spec, 2048, 512, **kw)
+    got_tm = PF.istft(time_major, 2048, 512, **kw)
+    torch.cuda.synchronize()
+    assert PF.BF16_SYNTHESIS_GEMMS == before + 2
+    want = two_product_bf16_istft(spec, 2048, 512, match_stride, 220_500)
+    assert got.shape == want.shape == (8, 220_500)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, want) < BF16_GEMM_RTOL
+    assert torch.equal(got, got_tm)
+
+
+def test_bf16_synthesis_recording_a_gradient_keeps_the_two_fp32_products(cuda):
+    """A card spectrum that requires grad under grad mode takes the two
+    fp32 products: no tensor-core product, and the output and the
+    spectrum's gradient bit-equal to the written-out path's. Under
+    ``no_grad`` the same spectrum takes the product."""
+    spec = _card_spectrum(5, (2, 1025, 40), cuda).requires_grad_(True)
+    n = 512 * 39
+    w = torch.from_numpy(np.random.RandomState(6).randn(2, n).astype(np.float32)).to(cuda)
+    before = PF.BF16_SYNTHESIS_GEMMS
+    out = PF.istft(spec, 2048, 512, original_length=n, method="matmul_bf16")
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert PF.BF16_SYNTHESIS_GEMMS == before
+    ref = spec.detach().clone().requires_grad_(True)
+    want = two_product_bf16_istft(ref, 2048, 512, False, n)
+    (want * w).sum().backward()
+    assert torch.equal(out, want) and torch.equal(spec.grad, ref.grad)
+    with torch.no_grad():
+        PF.istft(spec, 2048, 512, original_length=n, method="matmul_bf16")
+    assert PF.BF16_SYNTHESIS_GEMMS == before + 1
 
 
 def test_fused_istft_on_card_matches_cpu(cuda):

@@ -156,6 +156,8 @@ PORT_ONLY = {
     # the meters' and filters' valid conv methods
     "ops/filters.py": {"CONV_METHODS"},
     "ops/loudness.py": {"CONV_METHODS"},
+    # the count of the bf16 synthesis's tensor-core products on the card
+    "ops/fft.py": {"BF16_SYNTHESIS_GEMMS"},
     # nn.Modules, the layers flax has built in, and the formulation names,
     # which the port all computes as convs (the JAX package's shifted-matmul
     # units, ``_ShiftedConv``, are not ported: slower on the card)

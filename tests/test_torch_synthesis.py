@@ -218,6 +218,51 @@ def test_fused_synthesis_checks_its_inputs():
         HK.istft_synthesis_fused(spec, w, 16, torch.ones(96), -1)
 
 
+# -- the unfused bf16 synthesis: two fp32 products here, one GEMM on the card --
+
+
+@pytest.mark.parametrize("win,hop,match_stride", [(2048, 512, False), (2048, 512, True),
+                                                  (512, 128, True), (512, 100, False)])
+def test_bf16_synthesis_on_the_cpu_is_the_two_fp32_products(win, hop, match_stride):
+    """On the CPU ``istft(method="matmul_bf16")`` keeps its two fp32
+    products of the bf16-rounded operands, bit for bit, and never takes the
+    card's tensor-core product (its counter stays)."""
+    from tests.test_torch_cuda import two_product_bf16_istft
+
+    spec = torch.from_numpy(_spectrum(win, hop, match_stride, seed=6))
+    before = PF.BF16_SYNTHESIS_GEMMS
+    got = PF.istft(spec, win, hop, match_stride=match_stride, original_length=9000,
+                   method="matmul_bf16")
+    assert PF.BF16_SYNTHESIS_GEMMS == before
+    assert torch.equal(got, two_product_bf16_istft(spec, win, hop, match_stride, 9000))
+
+
+@pytest.mark.parametrize("n_fft,edge", [(2048, 2), (512, 0), (100, 2), (64, 1)])
+def test_bf16_synthesis_gemm_operands_interleave_the_bins(n_fft, edge):
+    """The card's product reads the spectrum as ``view_as_real`` lays it
+    out (re and im of each bin side by side) against weights interleaved
+    the same way, both padded with zeros to rows of 16 bytes, and the
+    ``edge`` zero frames as zero rows: in float64 the two give the two-product
+    frames (the bf16 values' products are exact there too)."""
+    rng = np.random.RandomState(n_fft + edge)
+    n_freq, nt = n_fft // 2 + 1, 7
+    spec = torch.from_numpy(((rng.randn(2, n_freq, nt) + 1j * rng.randn(2, n_freq, nt)) * 0.1)
+                            .astype(np.complex64)).transpose(-1, -2)  # (B, nt, n_freq) view
+    (w,) = PF._on_device(PF._bf16_synthesis_design, ("hann", n_fft), torch.device("cpu"))
+    a = PF._bf16_synthesis_operand(spec, edge, w.shape[0])
+    rows = w.shape[0]
+    assert w.dtype == a.dtype == torch.bfloat16
+    assert rows % 8 == 0 and 2 * n_freq <= rows < 2 * n_freq + 8
+    assert w.shape == (rows, n_fft) and a.shape == (2 * (nt + 2 * edge), rows)
+    assert not w[2 * n_freq :].any() and not a[:, 2 * n_freq :].any()
+    got = (a.double() @ w.double()).view(2, nt + 2 * edge, n_fft)
+    assert not got[:, :edge].any() and not got[:, nt + edge :].any()
+    Ci, Si = PF._on_device(PF._idft_matrices, ("hann", n_fft), torch.device("cpu"))
+    want = (PF._bf16(spec.real).double() @ PF._bf16(Ci).double()
+            + PF._bf16(spec.imag).double() @ PF._bf16(Si).double())
+    assert _rel(got[:, edge : nt + edge].numpy(), want.numpy()) < 1e-12
+
+
 # -- D: the rotation scan ----------------------------------------------------
 
 
